@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -8,16 +8,30 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 1. device — requires ``torch.cuda.is_available()``; prints the card's name and
    power limit; turns TF32 off for matmuls and cuDNN (the DSP runs in fp32);
 2. build  — compiles ``speech_separation_tpu_torch/csrc/*.cu`` with nvcc for
-   sm_90a into the package's ``.kernel_build/``;
+   sm_90a into the package's ``.kernel_build/`` (one nvcc per source, together);
 3. kernels against their plain PyTorch versions on the card: the STFT
    analysis kernel at (16, 64000) fp32, and the LSTM recurrence at full width
    (H=496, B=16, T=501, both directions) in fp32 and bf16;
-4. main path — ``separate_directory`` over the ``tt`` split of a synthetic
+4. serving path — ``separate_directory`` over the ``tt`` split of a synthetic
    fixture with the full-width ``UPitBlstm`` (16,077,602 random parameters
    from seed 0), in fp32 and bf16, counting each kernel's launches; then the
    kernel path against the plain path on one padded batch;
-5. timing — the bench shape (256 utterances × 8 s at 8 kHz), kernel path and
-   plain path in fp32 and bf16, and each kernel alone against its plain version.
+5. serving timing — the bench shape (256 utterances × 8 s at 8 kHz), kernel
+   path and plain path in fp32 and bf16, each serving kernel alone against its
+   plain version;
+6. training kernels against their plain versions at full width (H=496, B=16,
+   T=501, both directions), fp32 and bf16, with and without a keep gate with
+   segment breaks: the forward's h, gates and c, the backward's dgates, and
+   ``bilstm_train``'s four gradients against autograd through a plain loop;
+7. training path — the port's ``cli train`` for 2 epochs on a synthetic
+   fixture (tr 8, cv 4) at full width, fp32 and bf16, then ``cli separate
+   --checkpoint-dir`` on ``tt``, counting each kernel's launches; the kernel
+   path's train step against the plain path's on one batch; 8 steps on one
+   fixed batch must lower the loss;
+8. training timing — ``bench_blstm_train``'s shape (32 utterances × 8 s,
+   T=501): the train step, kernel path against plain path in fp32 and bf16,
+   in audio-seconds trained per second, and each training kernel alone
+   against its plain version.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -26,6 +40,7 @@ The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -41,6 +56,16 @@ LSTM_TOL = 1e-4  # fp32 kernel against the fp32 plain loop over 501 steps
 # relative) with the fp32 carry, against the fp32 plain loop
 LSTM_BF16_TOL = 3e-2
 PATH_REL_TOL = 1e-4  # relative L2, kernel path against plain path, fp32
+TRAIN_BATCH = 32  # bench.py::bench_blstm_train: 32 utterances x 8 s
+# Training kernels against their plain versions on the same inputs. fp32: the
+# same operations, sums in another order. bf16: both sides round gates, h and
+# dgates to bf16 at the same places; a sum whose last bit differs can flip
+# one rounding by a bf16 ulp (2^-8 relative), which the recurrence carries a
+# few steps, so the bound is 3e-2 of the largest magnitude (at least 1).
+TRAIN_TOL = 1e-4
+TRAIN_BF16_TOL = 3e-2
+GRAD_REL_TOL = 1e-4  # relative L2 of bilstm_train's fp32 gradients against autograd
+STEP_REL_TOL = 1e-5  # fp32 loss, kernel path against plain path
 
 
 def phase(name: str, message: str) -> None:
@@ -142,7 +167,7 @@ def main() -> int:
           f"{lstm_err:.3e} <= {LSTM_TOL}; bf16 against fp32 plain {lstm_err_bf16:.3e} "
           f"<= {LSTM_BF16_TOL} (bf16 operands, fp32 carry)")
 
-    # 4. main path: separate a directory at full width, fp32 and bf16
+    # 4. serving path: separate a directory at full width, fp32 and bf16
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = make_synthetic_fixture(
             pathlib.Path(tmp) / "fixture", utterances_per_split={"tr": 1, "cv": 1, "tt": 8}
@@ -163,7 +188,7 @@ def main() -> int:
         seconds = time.perf_counter() - t0
         launches = {"stft_analysis": stft_cuda.launches, "lstm_recurrence": lstm_recurrence.launches}
         if min(launches.values()) <= 0:
-            raise AssertionError(f"a kernel of the main path never launched: {launches}")
+            raise AssertionError(f"a kernel of the serving path never launched: {launches}")
         for tag, paths in written.items():
             if len(paths) != 2 * len(names) or not all(p.exists() for p in paths):
                 raise AssertionError(f"{tag}: wrote {len(paths)} wavs for {len(names)} mixtures")
@@ -174,7 +199,7 @@ def main() -> int:
                     est, _ = read_wav(pathlib.Path(tmp) / f"sep_{tag}" / f"{n[:-4]}_s{s}.wav")
                     if len(est) != separated_length(frames, 256, 128):
                         raise AssertionError(f"{tag}: {n} s{s} has {len(est)} samples")
-        phase("main", f"separate_directory tt ({len(names)} mixtures, UPitBlstm "
+        phase("serve", f"separate_directory tt ({len(names)} mixtures, UPitBlstm "
               f"{n_params:,} params) fp32 + bf16: {sum(map(len, written.values()))} wavs "
               f"in {seconds:.2f} s; launches {launches}")
 
@@ -189,7 +214,7 @@ def main() -> int:
             rel = ((got - plain).norm() / plain.norm()).item()
             if tag == "fp32" and not rel <= PATH_REL_TOL:
                 raise AssertionError(f"kernel path vs plain path rel L2 {rel} > {PATH_REL_TOL}")
-            phase("main", f"{tag} kernel path against fp32 plain path on one batch "
+            phase("serve", f"{tag} kernel path against fp32 plain path on one batch "
                   f"{tuple(mix.shape)}: rel L2 {rel:.3e}, finite, shape {tuple(got.shape)}")
 
     # 5. timing at the bench shape
@@ -226,6 +251,8 @@ def main() -> int:
             phase("timing", f"lstm_recurrence {tag} D=2 B={BENCH_BATCH} T={frames} H={hidden}: "
                   f"kernel {lstm_ms[tag][0]:.2f} ms, plain {lstm_ms[tag][1]:.2f} ms")
 
+    train = training_phases(device, model, gen)
+
     kernels = [
         {
             "name": "stft_analysis",
@@ -250,12 +277,223 @@ def main() -> int:
             "ms_bf16": lstm_ms["bf16"][0],
             "plain_ms_bf16": lstm_ms["bf16"][1],
         },
+        *train,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def max_err(got, want) -> float:
+    return max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+
+
+def bf16_bound(want) -> float:
+    return TRAIN_BF16_TOL * max(1.0, max(w.float().abs().max().item() for w in want))
+
+
+def training_phases(device, model, gen) -> list[dict]:
+    """Phases 6 to 8; returns the two training kernels' entries of the kernels line."""
+    import torch
+
+    from speech_separation_tpu_torch import cli
+    from speech_separation_tpu_torch import train as train_mod
+    from speech_separation_tpu_torch.data.datasets import WaveformLoader
+    from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.models.upit import UPitBlstm
+    from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence
+    from speech_separation_tpu_torch.ops.lstm_train_cuda import (
+        bilstm_reference,
+        bilstm_train,
+        lstm_train_backward,
+        lstm_train_backward_plain,
+        lstm_train_forward,
+        lstm_train_forward_plain,
+    )
+    from speech_separation_tpu_torch.ops.stft import stft_frame_count
+    from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
+
+    # 6. training kernels against their plain versions at full width
+    hidden, batch, steps = 496, 16, 501
+    u = model.bilstm_1.cells.recurrent_kernel.detach()
+    xw = torch.randn(2, batch, steps, 4 * hidden, generator=gen, device=device)
+    dy = torch.randn(batch, steps, 2 * hidden, generator=gen, device=device)
+    # segment breaks every ~40 steps, in each direction's scan order
+    keep = (torch.rand(2, batch, steps, generator=gen, device=device) > 0.025).float()
+    errs = {}
+    with torch.no_grad():
+        for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for kname, k in (("", None), ("+keep", keep)):
+                want = lstm_train_forward_plain(xw, u, keep=k, compute_dtype=dt)
+                got = lstm_train_forward(xw, u, keep=k, compute_dtype=dt)
+                fwd_err, fwd_bound = max_err(got, want), TRAIN_TOL
+                _, gates, c_all = want
+                want_dg = lstm_train_backward_plain(gates, c_all, dy.to(dt), u, keep=k,
+                                                    compute_dtype=dt)
+                got_dg = lstm_train_backward(gates, c_all, dy.to(dt), u, keep=k, compute_dtype=dt)
+                bwd_err, bwd_bound = max_err([got_dg], [want_dg]), TRAIN_TOL
+                if dt == torch.bfloat16:
+                    fwd_bound, bwd_bound = bf16_bound(want), bf16_bound([want_dg])
+                torch.cuda.synchronize()
+                if not (fwd_err <= fwd_bound and bwd_err <= bwd_bound):
+                    raise AssertionError(
+                        f"training kernels {tag}{kname}: forward max abs err {fwd_err} "
+                        f"(bound {fwd_bound}), backward {bwd_err} (bound {bwd_bound})"
+                    )
+                errs[tag + kname] = (fwd_err, bwd_err)
+                phase("train-kernels", f"{tag}{kname} H={hidden} B={batch} T={steps} D=2: "
+                      f"forward (h, gates, c) max abs err {fwd_err:.3e} <= {fwd_bound:.3e}; "
+                      f"backward dgates {bwd_err:.3e} <= {bwd_bound:.3e} "
+                      f"(max |dgates| {want_dg.float().abs().max().item():.3f})")
+
+    cells = model.bilstm_1.cells
+    x = 0.5 * torch.randn(batch, steps, 2 * hidden, generator=gen, device=device)
+    w = torch.randn(batch, steps, 2 * hidden, generator=gen, device=device)
+    for kname, k in (("", None), ("+keep", keep)):
+        grads = []
+        for run in (lambda *a: bilstm_train(*a, keep=k, compute_dtype=torch.float32),
+                    lambda *a: bilstm_reference(*a, keep=k)):
+            params = [t.detach().clone().requires_grad_()
+                      for t in (x, cells.kernel, cells.recurrent_kernel, cells.bias)]
+            (run(*params) * w).sum().backward()
+            grads.append([p.grad for p in params])
+        rels = [((a - b).norm() / b.norm()).item() for a, b in zip(*grads)]
+        if not max(rels) <= GRAD_REL_TOL:
+            raise AssertionError(f"bilstm_train{kname} gradients against autograd: rel L2 {rels}")
+        phase("train-kernels", f"bilstm_train{kname} fp32 B={batch} T={steps} F={2 * hidden}: "
+              f"dx, dkernel, drecurrent, dbias rel L2 against autograd through the plain loop "
+              f"{', '.join(f'{r:.2e}' for r in rels)} <= {GRAD_REL_TOL}")
+
+    # 7. training path through the port's CLI at full width
+    counters = (stft_cuda, lstm_recurrence, lstm_train_forward, lstm_train_backward)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = pathlib.Path(tmp)
+        root = make_synthetic_fixture(tmp / "fixture",
+                                      utterances_per_split={"tr": 8, "cv": 4, "tt": 4})
+        for counter in counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        for tag, bf16 in (("fp32", False), ("bf16", True)):
+            cfg = tmp / f"cfg_{tag}.json"
+            cfg.write_text(json.dumps({"seed": 0, "batch_size": 4, "bf16_compute": bf16}))
+            ckpt = tmp / f"ckpt_{tag}"
+            cli.main(["train", "--workload", "upit", "--config", str(cfg), "--data-root",
+                      str(root), "--epochs", "2", "--checkpoint-dir", str(ckpt)])
+            records = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+            losses = [r["loss"] for r in records if "loss" in r]
+            vals = [r["val_loss"] for r in records if "val_loss" in r]
+            if len(losses) != 4 or len(vals) != 2 or not all(map(math.isfinite, losses + vals)):
+                raise AssertionError(f"cli train {tag}: step losses {losses}, val losses {vals}")
+            if not list(ckpt.glob("ckpt_*.pt")) or not (ckpt / "train_config.json").exists():
+                raise AssertionError(f"cli train {tag}: no checkpoint in {sorted(ckpt.iterdir())}")
+            phase("train", f"cli train {tag} (UPitBlstm at the config's full width), 2 epochs "
+                  f"of tr 8 (batch 4) + cv 4: step losses {', '.join(f'{v:.2f}' for v in losses)}; "
+                  f"val {', '.join(f'{v:.2f}' for v in vals)}")
+        out = tmp / "sep"
+        cli.main(["separate", "--checkpoint-dir", str(tmp / "ckpt_bf16"), "--data-root",
+                  str(root), "--out-dir", str(out)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel of the training path never launched: {launches}")
+        wavs = sorted(out.glob("*.wav"))
+        if len(wavs) != 8:
+            raise AssertionError(f"cli separate wrote {len(wavs)} wavs for 4 mixtures")
+        phase("train", f"cli train fp32 + bf16 and cli separate --checkpoint-dir (8 wavs) in "
+              f"{seconds:.1f} s; launches {launches}")
+
+        # the kernel path's train step against the plain path's, on one batch
+        loader = WaveformLoader(root / "tr", batch_size=4)
+        b = next(iter(loader))
+        arrays = tuple(torch.from_numpy(a).to(device) for a in (b.mix, b.sources, b.frame_lengths))
+        step_losses = {}
+        for kind in ("kernel", "plain"):
+            net = UPitBlstm(dropout_rate=0.0, generator=torch.Generator().manual_seed(0)).to(device)
+            state = train_mod.TrainState.create(net, train_mod.exponential_decay_adam(), seed=0)
+            ts, ev = train_mod.make_upit_waveform_steps(net, plain=kind == "plain")
+            step_losses[kind] = [ts(state, *arrays)[1].item() for _ in range(2)]
+            step_losses[kind].append(ev(state, *arrays).item())
+        rel = max(abs(a - c) / abs(c) for a, c in zip(step_losses["kernel"], step_losses["plain"]))
+        if not rel <= STEP_REL_TOL:
+            raise AssertionError(f"train steps kernel vs plain: {step_losses} (rel {rel})")
+        phase("train", f"fp32 kernel path against plain path, 2 train steps + eval on one batch "
+              f"{tuple(b.mix.shape)}: losses {step_losses['kernel']} vs {step_losses['plain']}, "
+              f"max rel {rel:.2e} <= {STEP_REL_TOL}")
+
+        for tag, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            net = UPitBlstm(generator=torch.Generator().manual_seed(0)).to(device)
+            state = train_mod.TrainState.create(net, train_mod.exponential_decay_adam(), seed=0)
+            ts, _ = train_mod.make_upit_waveform_steps(net, compute_dtype=dt)
+            fixed = [ts(state, *arrays)[1].item() for _ in range(8)]
+            if not (all(map(math.isfinite, fixed)) and fixed[-1] < fixed[0]):
+                raise AssertionError(f"8 steps {tag} on one batch did not lower the loss: {fixed}")
+            phase("train", f"8 steps {tag} exponential_decay_adam on one fixed batch: loss "
+                  f"{fixed[0]:.2f} -> {fixed[-1]:.2f}")
+
+    # 8. training timing at bench_blstm_train's shape
+    samples = int(BENCH_SECONDS * SAMPLE_RATE)
+    frames = stft_frame_count(samples, 256, 128)
+    sources = 0.1 * torch.randn(TRAIN_BATCH, 2, samples, generator=gen, device=device)
+    arrays = (sources.sum(1), sources,
+              torch.full((TRAIN_BATCH,), frames, dtype=torch.int32, device=device))
+    audio_s = TRAIN_BATCH * BENCH_SECONDS
+    step_ms = {}
+    for tag, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+        for kind in ("plain", "kernel", "kernel", "plain"):
+            net = UPitBlstm(generator=torch.Generator().manual_seed(0)).to(device)
+            state = train_mod.TrainState.create(net, train_mod.exponential_decay_adam(), seed=0)
+            ts, _ = train_mod.make_upit_waveform_steps(net, compute_dtype=dt,
+                                                      plain=kind == "plain")
+            step_ms.setdefault((tag, kind), []).append(
+                cuda_ms(lambda: ts(state, *arrays), iters=3))
+    for (tag, kind), vals in step_ms.items():
+        ms = min(vals)
+        phase("train-timing", f"train step {tag} {kind} path, {TRAIN_BATCH} x "
+              f"{BENCH_SECONDS:.0f} s: {ms:.1f} ms/step = {audio_s / (ms / 1e3):,.1f} "
+              f"audio-s trained per s (runs {', '.join(f'{v:.1f}' for v in vals)} ms)")
+
+    xw = torch.randn(2, TRAIN_BATCH, frames, 4 * hidden, generator=gen, device=device)
+    dy = torch.randn(TRAIN_BATCH, frames, 2 * hidden, generator=gen, device=device)
+    kernel_ms = {}
+    with torch.no_grad():
+        for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            x_t, u_t, dy_t = xw.to(dt), u.to(dt), dy.to(dt)
+            _, gates, c_all = lstm_train_forward(x_t, u_t)
+            kernel_ms[tag] = {
+                "forward": (cuda_ms(lambda: lstm_train_forward(x_t, u_t), iters=5),
+                            cuda_ms(lambda: lstm_train_forward_plain(x_t, u_t), iters=2)),
+                "backward": (cuda_ms(lambda: lstm_train_backward(gates, c_all, dy_t, u_t), iters=5),
+                             cuda_ms(lambda: lstm_train_backward_plain(gates, c_all, dy_t, u_t),
+                                     iters=2)),
+            }
+            for which, (k_ms, p_ms) in kernel_ms[tag].items():
+                phase("train-timing", f"lstm_train_{which} {tag} D=2 B={TRAIN_BATCH} T={frames} "
+                      f"H={hidden}: kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+
+    entries = []
+    for which, counter, line in (("forward", lstm_train_forward, 169),
+                                 ("backward", lstm_train_backward, 211)):
+        i = 0 if which == "forward" else 1
+        entries.append({
+            "name": f"lstm_train_{which}",
+            "route": "cuda",
+            "source": "speech_separation_tpu_torch/csrc/"
+                      + ("lstm_recurrence.cu" if which == "forward" else "lstm_train_backward.cu"),
+            "replaces": f"speech_separation_tpu/ops/lstm_train_pallas.py:{line}",
+            "launches": launches[counter.__name__],
+            "max_abs_err": errs["fp32"][i],
+            "ms": kernel_ms["fp32"][which][0],
+            "plain_ms": kernel_ms["fp32"][which][1],
+            "max_abs_err_keep": errs["fp32+keep"][i],
+            "max_abs_err_bf16": errs["bf16"][i],
+            "max_abs_err_bf16_keep": errs["bf16+keep"][i],
+            "ms_bf16": kernel_ms["bf16"][which][0],
+            "plain_ms_bf16": kernel_ms["bf16"][which][1],
+        })
+    return entries
 
 
 if __name__ == "__main__":

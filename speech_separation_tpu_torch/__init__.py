@@ -3,12 +3,19 @@
 The JAX package beside it is the reference; this package imports neither JAX
 nor ``speech_separation_tpu``. Module paths mirror the JAX package's:
 
-- ``ops``      : framing, windows, STFT/iSTFT, features, int16 quantization,
-                 and the CUDA kernels' wrappers (``stft_cuda``, ``lstm_cuda``);
-- ``models``   : the uPIT BLSTM separator as ``nn.Module``s;
+- ``ops``      : framing, windows, STFT/iSTFT, features (PSM labels), int16
+                 quantization, and the CUDA kernels' wrappers (``stft_cuda``,
+                 ``lstm_cuda``, ``lstm_train_cuda``);
+- ``models``   : the uPIT BLSTM separator as ``nn.Module``s, with its
+                 training forward;
+- ``losses``   : the PIT loss;
+- ``train``    : Adam with optax's semantics, train state, steps,
+                 checkpoints and the epoch loop;
 - ``data``     : audio I/O, the waveform loader, the synthetic fixture;
 - ``separate`` : wave-to-wave separation of a directory;
-- ``weights``  : JAX parameter trees → ``state_dict``s;
+- ``utils``    : the training config and the metrics log;
+- ``cli``      : ``train`` and ``separate`` from the command line;
+- ``weights``  : JAX parameter trees ↔ ``state_dict``s;
 - ``_build``   : builds ``csrc/*.cu`` with nvcc for sm_90a at first use.
 """
 

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 The kernels are compiled with ``nvcc`` into one shared library with a plain C
-interface, at the first CUDA call, and loaded with :mod:`ctypes`. The library
-name carries a hash of the sources and flags, so a stale build is never
-loaded. Builds go to ``.kernel_build/`` inside the package, which git ignores.
+interface, at the first CUDA call, and loaded with :mod:`ctypes`: one ``nvcc``
+per source, all started together, then one link. The library name carries a
+hash of the sources and flags, so a stale build is never loaded. Builds go to
+``.kernel_build/`` inside the package, which git ignores.
 
 Every C entry returns ``cudaGetLastError()`` after its launches; :func:`check`
 raises on a non-zero code. A launch that is refused (too many threads, too
@@ -22,13 +23,13 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "find_nvcc", "nvcc_command", "library", "check"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "find_nvcc", "nvcc_commands", "library", "check"]
 
 _PACKAGE = pathlib.Path(__file__).resolve().parent
 SOURCES = tuple(sorted((_PACKAGE / "csrc").glob("*.cu")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 BUILD_DIR = _PACKAGE / ".kernel_build"
 
@@ -39,6 +40,12 @@ _SIGNATURES = {
     "sst_stft_analysis": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # xw, u, h_a, h_b, c, out, dirs, batch, steps, hidden, reverse_mask, bf16, stream
     "sst_lstm_recurrence": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # xw, u, h_a, h_b, c, out, gates, c_all, keep, dirs, batch, steps, hidden,
+    # reverse_mask, bf16, stream
+    "sst_lstm_train_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # gates, c_all, dy, u, dc, keep, dgates, dirs, batch, steps, hidden,
+    # reverse_mask, bf16, stream
+    "sst_lstm_train_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -59,9 +66,14 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
 
 
-def nvcc_command(nvcc: str, output: str | os.PathLike) -> list[str]:
-    """The compiler command that builds every source into ``output``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(output), *(str(s) for s in SOURCES)]
+def nvcc_commands(nvcc: str, output: str | os.PathLike) -> list[list[str]]:
+    """One compile command per source (``output`` stem + source stem + ``.o``),
+    to run together, then the command that links them into ``output``."""
+    output = pathlib.Path(output)
+    objects = [output.with_name(f"{output.stem}_{s.stem}.o") for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(SOURCES, objects)]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(output), *(str(o) for o in objects)]
+    return [*compiles, link]
 
 
 def _library_path() -> pathlib.Path:
@@ -76,16 +88,25 @@ def _build(path: pathlib.Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    *compiles, link = nvcc_commands(find_nvcc(), tmp)
+    objects = [cmd[-1] for cmd in compiles]
     try:
-        proc = subprocess.run(
-            nvcc_command(find_nvcc(), tmp), capture_output=True, text=True, check=False
-        )
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in compiles
+        ]
+        outputs = [(proc.communicate()[0], proc.returncode) for proc in procs]
+        for cmd, (text, code) in zip(compiles, outputs):
+            if code != 0:
+                raise RuntimeError(f"nvcc failed ({code}) on {cmd[-3]}:\n{text}")
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)  # atomic: a concurrent loader never sees a partial file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for leftover in (tmp, *objects):
+            if os.path.exists(leftover):
+                os.unlink(leftover)
 
 
 def library() -> ctypes.CDLL:

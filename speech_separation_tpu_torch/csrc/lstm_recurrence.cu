@@ -1,19 +1,31 @@
 // LSTM recurrence over precomputed input projections, for Hopper, sm_90a.
 //
-// Replaces the Pallas TPU kernel speech_separation_tpu/ops/lstm_pallas.py
-// (lstm_pallas, body _make_kernel), the serving recurrence that
-// models/upit.py::upit_blstm_pallas_forward runs. Per step and direction:
+// Replaces two Pallas TPU kernels:
+// - speech_separation_tpu/ops/lstm_pallas.py (lstm_pallas, body _make_kernel),
+//   the serving recurrence that models/upit.py::upit_blstm_pallas_forward runs
+//   (entry sst_lstm_recurrence);
+// - the training forward of speech_separation_tpu/ops/lstm_train_pallas.py
+//   (_fwd_call, body _make_fwd_kernel, packed variant included), which
+//   models/upit.py::upit_blstm_train_forward runs (entry
+//   sst_lstm_train_forward): the same recurrence, plus residual stores of the
+//   post-activation gates (compute type) and of c (fp32) for the backward in
+//   lstm_train_backward.cu, and an optional keep gate.
+// Per step and direction:
 //   z = xw_t + h @ U            (Keras gate order i, f, g, o along 4H)
 //   c = sigmoid(z_f) * c + sigmoid(z_i) * tanh(z_g)
 //   h = sigmoid(z_o) * tanh(c)
 // with the (h, c) carry in fp32 and h rounded to the compute type (fp32 or
 // bf16) before the product, as lstm_pallas does. Products of compute-type
-// operands are exact in fp32 and accumulate in fp32.
+// operands are exact in fp32 and accumulate in fp32. With a keep gate
+// (sequence-packed rows), the carry is multiplied by keep[d, b, step] before
+// the step, so utterances that share a row never see each other's state.
 //
 // Both directions of a BiLSTM layer run in one call (grid z = direction).
 // A direction whose bit is set in reverse_mask walks time backwards over the
 // whole padded length, which is what the reference's flip, scan and flip back
-// computes (models/blstm.py:111,139), without copying any tensor.
+// computes (models/blstm.py:111,139), without copying any tensor. Every
+// tensor with a time axis is indexed by real time t; only the keep gate is
+// indexed by the direction's own scan step, as in the reference.
 //
 // What bounds it on this card: the recurrence is sequential over T steps, and
 // each step is a small product [B, H] x [H, 4H] per direction: at H = 496
@@ -33,11 +45,12 @@
 //   the block with no exchange; U is streamed through shared memory 32 rows at
 //   a time, and each thread keeps a 2 x 2 x 4 register tile of gate sums;
 // - H = 496 needs no padding to a tile multiple: the ragged unit, row and
-//   reduction tiles are masked.
+//   reduction tiles are masked;
+// - the training mode and the keep gate are template flags, so the serving
+//   instantiation carries no residual store and no branch per element.
 // A persistent kernel with a grid barrier per step, or a thread-block cluster
 // sharing U through distributed shared memory, and tensor-core products are
-// later work. Training can add residual stores of the gates and c to the
-// epilogue below as a mode of this kernel.
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,12 +78,16 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 
 // xw [D, B, T, 4H], u [D, H, 4H] in T; h_in, h_out, c [D, B, H] fp32;
 // out [B, T, D * H] in T. Computes time step `step` of every direction.
-template <typename T>
+// kTrain: also gates [D, B, T, 4H] in T (post-activation i, f, g, o) and
+// c_all [D, B, T, H] fp32. kKeep: keep [D, B, T] fp32 in scan order gates
+// the carry (h and c) before the step.
+template <typename T, bool kTrain, bool kKeep>
 __global__ void __launch_bounds__(kThreads)
 lstm_step_kernel(const T* __restrict__ xw, const T* __restrict__ u,
                  const float* __restrict__ h_in, float* __restrict__ h_out,
-                 float* __restrict__ c, T* __restrict__ out, int batch, int steps, int hidden,
-                 int step, int reverse_mask) {
+                 float* __restrict__ c, T* __restrict__ out, T* __restrict__ gates_out,
+                 float* __restrict__ c_all, const float* __restrict__ keep, int batch,
+                 int steps, int hidden, int step, int reverse_mask) {
   __shared__ float sh[kRows][kDepth + 1];
   __shared__ float su[kDepth][4 * kUnits];
 
@@ -91,7 +108,8 @@ lstm_step_kernel(const T* __restrict__ xw, const T* __restrict__ u,
     for (int i = threadIdx.x; i < kRows * kDepth; i += kThreads) {
       const int rb = b0 + i / kDepth;
       const int k = k0 + i % kDepth;
-      const float v = (rb < batch && k < hidden) ? hd[static_cast<size_t>(rb) * hidden + k] : 0.f;
+      float v = (rb < batch && k < hidden) ? hd[static_cast<size_t>(rb) * hidden + k] : 0.f;
+      if (kKeep && rb < batch) v *= keep[(static_cast<size_t>(d) * batch + rb) * steps + step];
       sh[i / kDepth][i % kDepth] = to_float(from_float<T>(v));
     }
     for (int i = threadIdx.x; i < kDepth * 4 * kUnits; i += kThreads) {
@@ -124,7 +142,9 @@ lstm_step_kernel(const T* __restrict__ xw, const T* __restrict__ u,
   for (int r = 0; r < 2; ++r) {
     const int rb = b0 + ty + 16 * r;
     if (rb >= batch) continue;
-    const T* x = xw + ((static_cast<size_t>(d) * batch + rb) * steps + t) * gates;
+    const size_t row = (static_cast<size_t>(d) * batch + rb) * steps + t;  // [D, B, T]
+    const T* x = xw + row * gates;
+    const float kr = kKeep ? keep[(static_cast<size_t>(d) * batch + rb) * steps + step] : 1.f;
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int j = j0 + tx + 16 * q;
@@ -134,31 +154,53 @@ lstm_step_kernel(const T* __restrict__ xw, const T* __restrict__ u,
       const float gg = tanhf(to_float(x[2 * hidden + j]) + acc[r][q][2]);
       const float og = sigmoid(to_float(x[3 * hidden + j]) + acc[r][q][3]);
       const size_t s = (static_cast<size_t>(d) * batch + rb) * hidden + j;
-      const float cn = fg * c[s] + ig * gg;
+      const float cp = kKeep ? c[s] * kr : c[s];
+      const float cn = fg * cp + ig * gg;
       const float hn = og * tanhf(cn);
       c[s] = cn;
       h_out[s] = hn;
       out[(static_cast<size_t>(rb) * steps + t) * dirs * hidden + d * hidden + j] =
           from_float<T>(hn);
+      if (kTrain) {
+        T* g4 = gates_out + row * gates;
+        g4[j] = from_float<T>(ig);
+        g4[hidden + j] = from_float<T>(fg);
+        g4[2 * hidden + j] = from_float<T>(gg);
+        g4[3 * hidden + j] = from_float<T>(og);
+        c_all[row * hidden + j] = cn;
+      }
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kTrain, bool kKeep>
 int run_steps(const void* xw, const void* u, void* h_a, void* h_b, void* c, void* out,
-              int dirs, int batch, int steps, int hidden, int reverse_mask,
-              cudaStream_t stream) {
+              void* gates, void* c_all, const void* keep, int dirs, int batch, int steps,
+              int hidden, int reverse_mask, cudaStream_t stream) {
   const dim3 grid((hidden + kUnits - 1) / kUnits, (batch + kRows - 1) / kRows, dirs);
   for (int s = 0; s < steps; ++s) {
     float* h_in = static_cast<float*>(s % 2 ? h_b : h_a);
     float* h_out = static_cast<float*>(s % 2 ? h_a : h_b);
-    lstm_step_kernel<T><<<grid, kThreads, 0, stream>>>(
+    lstm_step_kernel<T, kTrain, kKeep><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(xw), static_cast<const T*>(u), h_in, h_out,
-        static_cast<float*>(c), static_cast<T*>(out), batch, steps, hidden, s, reverse_mask);
+        static_cast<float*>(c), static_cast<T*>(out), static_cast<T*>(gates),
+        static_cast<float*>(c_all), static_cast<const float*>(keep), batch, steps, hidden, s,
+        reverse_mask);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+template <typename T>
+int run_train(const void* xw, const void* u, void* h_a, void* h_b, void* c, void* out,
+              void* gates, void* c_all, const void* keep, int dirs, int batch, int steps,
+              int hidden, int reverse_mask, cudaStream_t stream) {
+  if (keep)
+    return run_steps<T, true, true>(xw, u, h_a, h_b, c, out, gates, c_all, keep, dirs, batch,
+                                    steps, hidden, reverse_mask, stream);
+  return run_steps<T, true, false>(xw, u, h_a, h_b, c, out, gates, c_all, nullptr, dirs, batch,
+                                   steps, hidden, reverse_mask, stream);
 }
 
 }  // namespace
@@ -172,7 +214,24 @@ extern "C" int sst_lstm_recurrence(const void* xw, const void* u, void* h_a, voi
                                    int reverse_mask, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return run_steps<__nv_bfloat16>(xw, u, h_a, h_b, c, out, dirs, batch, steps, hidden,
-                                    reverse_mask, s);
-  return run_steps<float>(xw, u, h_a, h_b, c, out, dirs, batch, steps, hidden, reverse_mask, s);
+    return run_steps<__nv_bfloat16, false, false>(xw, u, h_a, h_b, c, out, nullptr, nullptr,
+                                                  nullptr, dirs, batch, steps, hidden,
+                                                  reverse_mask, s);
+  return run_steps<float, false, false>(xw, u, h_a, h_b, c, out, nullptr, nullptr, nullptr, dirs,
+                                        batch, steps, hidden, reverse_mask, s);
+}
+
+// The training forward: sst_lstm_recurrence plus the residuals gates
+// [D, B, T, 4H] (compute type) and c_all [D, B, T, H] (fp32), and an optional
+// keep gate [D, B, T] fp32 in each direction's scan order (null for none).
+extern "C" int sst_lstm_train_forward(const void* xw, const void* u, void* h_a, void* h_b,
+                                      void* c, void* out, void* gates, void* c_all,
+                                      const void* keep, int dirs, int batch, int steps,
+                                      int hidden, int reverse_mask, int bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return run_train<__nv_bfloat16>(xw, u, h_a, h_b, c, out, gates, c_all, keep, dirs, batch,
+                                    steps, hidden, reverse_mask, s);
+  return run_train<float>(xw, u, h_a, h_b, c, out, gates, c_all, keep, dirs, batch, steps,
+                          hidden, reverse_mask, s);
 }

@@ -7,8 +7,10 @@
 - :func:`prefetch_to_device` — keep batches in flight on the device: pinned
   host memory and ``.to(device, non_blocking=True)``.
 
-Shuffling, length sorting and dynamic mixing serve training and wait for its
-slice.
+Training adds per-epoch shuffling (``default_rng(seed + epoch)``, the JAX
+loader's order, so one seed gives the same batches in both packages),
+``set_epoch`` for resume, ``drop_remainder`` and ``sort_by_length``. Dynamic
+mixing waits for a later slice.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.stft import stft_frame_count
-from .audio_io import audioread, quantize_i16
+from .audio_io import audioread, quantize_i16, wav_duration_samples
 from .features import resolve_mix_dirname, utterance_names
 
 __all__ = [
@@ -73,8 +75,12 @@ def load_utterance_batch_i16(split_dir, names, num_speakers: int, sample_rate: i
 
 @dataclass
 class WaveformLoader:
-    """Batches of (mix, s1..sN) waveforms from a wsj0-2mix style split dir, in
-    list order, each padded to the next multiple of ``pad_quantum_seconds``."""
+    """Batches of (mix, s1..sN) waveforms from a wsj0-2mix style split dir,
+    each padded to the next multiple of the pad quantum.
+
+    ``shuffle`` draws each epoch's order from ``default_rng(seed + epoch)``;
+    ``sort_by_length`` orders utterances by duration (wav headers only) and
+    then shuffles whole batches, keeping similar lengths together."""
 
     split_dir: str | pathlib.Path
     batch_size: int = 2
@@ -83,23 +89,60 @@ class WaveformLoader:
     stft_shift: int = 128
     num_speakers: int = 2
     pad_quantum_seconds: float = 1.0
+    pad_quantum_samples: int | None = None  # overrides pad_quantum_seconds
+    shuffle: bool = False
+    seed: int = 0
+    drop_remainder: bool = False
+    sort_by_length: bool = False
     # int16 PCM counts instead of float32 (half the bytes to the device; the
-    # separate step dequantizes bit-exactly for 16-bit sources)
+    # steps dequantize bit-exactly for 16-bit sources)
     transfer_int16: bool = False
     names: list[str] = field(init=False)
 
     def __post_init__(self) -> None:
         self.split_dir = pathlib.Path(self.split_dir)
         self.names = utterance_names(self.split_dir)
+        if self.sort_by_length:
+            mixdir = resolve_mix_dirname(self.split_dir)
+            durations = [
+                wav_duration_samples(self.split_dir / mixdir / n)[0] for n in self.names
+            ]
+            self.names = [n for _, n in sorted(zip(durations, self.names))]
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the shuffle epoch (resume): the next epoch's order comes from
+        ``default_rng(seed + epoch)``, continuing the stream, not replaying it."""
+        self._epoch = int(epoch)
 
     def __len__(self) -> int:
-        return math.ceil(len(self.names) / self.batch_size)
+        n = len(self.names)
+        return n // self.batch_size if self.drop_remainder else math.ceil(n / self.batch_size)
+
+    def _order(self) -> np.ndarray:
+        n = len(self.names)
+        pos = np.arange(n)
+        if not self.shuffle:
+            return pos
+        rng = np.random.default_rng(self.seed + self._epoch)
+        self._epoch += 1
+        if self.sort_by_length:
+            groups = [pos[s : s + self.batch_size] for s in range(0, n, self.batch_size)]
+            rng.shuffle(groups)
+            return np.concatenate(groups) if groups else pos
+        return rng.permutation(pos)
 
     def __iter__(self) -> Iterator[WaveformBatch]:
-        quantum = max(1, int(self.pad_quantum_seconds * self.sample_rate))
+        order = self._order()
+        quantum = self.pad_quantum_samples or max(
+            1, int(self.pad_quantum_seconds * self.sample_rate)
+        )
         load = load_utterance_batch_i16 if self.transfer_int16 else load_utterance_batch
-        for start in range(0, len(self.names), self.batch_size):
-            names = tuple(self.names[start : start + self.batch_size])
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start : start + self.batch_size]
+            if self.drop_remainder and len(idx) < self.batch_size:
+                return
+            names = tuple(self.names[i] for i in idx)
             loaded = load(self.split_dir, names, self.num_speakers, self.sample_rate)
             lengths = np.asarray([len(m) for m, _ in loaded], dtype=np.int32)
             padded = _round_up(int(lengths.max()), quantum)

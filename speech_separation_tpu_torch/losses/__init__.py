@@ -1,0 +1,5 @@
+"""Training losses (counterpart of ``losses/``)."""
+
+from .pit import pairwise_pit_costs, pit_loss
+
+__all__ = ["pairwise_pit_costs", "pit_loss"]

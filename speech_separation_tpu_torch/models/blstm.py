@@ -11,7 +11,8 @@ the recurrence runs in ``ops/lstm_cuda.py`` (the CUDA kernel on a GPU tensor,
 its plain loop on the CPU, or the plain loop anywhere with ``plain=True``).
 
 Like the JAX layers, padded timesteps are processed as ordinary inputs, and
-the backward direction runs over the whole padded length.
+the backward direction runs over the whole padded length. :func:`segment_keep`
+builds the carry gate of sequence-packed rows for the training recurrence.
 """
 
 from __future__ import annotations
@@ -21,7 +22,16 @@ from torch import nn
 
 from ..ops.lstm_cuda import lstm_recurrence, lstm_recurrence_plain
 
-__all__ = ["LSTM", "BiLSTM"]
+__all__ = ["LSTM", "BiLSTM", "segment_keep"]
+
+
+def segment_keep(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-step carry-keep gate for a forward-time scan: ``keep[b, t] = 1``
+    iff frame ``t`` continues frame ``t-1``'s segment (``keep[:, 0] = 1``;
+    the zero initial carry handles the row start). Float32 ``[B, T]``."""
+    same = segment_ids[:, 1:] == segment_ids[:, :-1]
+    first = torch.ones_like(same[:, :1])
+    return torch.cat([first, same], dim=1).to(torch.float32)
 
 
 class LSTM(nn.Module):

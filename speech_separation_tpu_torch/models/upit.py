@@ -3,8 +3,10 @@
 :class:`UPitBlstm` is the spectral-domain baseline: magnitude in,
 ``Dense(496, tanh)``, 3 × (BiLSTM(496) + Dropout 0.8), one ReLU mask head per
 speaker, each mask multiplied with the input magnitude, heads concatenated on
-the feature axis → ``[B, T, num_speakers * output_size]``. Serving only:
-dropout is identity in eval, and training (with dropout) is a later slice.
+the feature axis → ``[B, T, num_speakers * output_size]``. ``forward`` serves
+(dropout is identity in eval); ``train_forward`` is the differentiable
+training forward, whose BiLSTM recurrences run through the training kernels
+of ``ops/lstm_train_cuda.py``.
 
 Submodules carry the JAX parameter tree's names (``input_proj``,
 ``bilstm_{i}.cells``, ``heads.mask_head_{s}``) and layouts (``Dense`` kernels
@@ -20,9 +22,10 @@ import math
 import torch
 from torch import nn
 
+from ..ops.lstm_train_cuda import bilstm_train
 from .blstm import BiLSTM
 
-__all__ = ["Dense", "UPitBlstm"]
+__all__ = ["Dense", "UPitBlstm", "dropout"]
 
 
 class Dense(nn.Module):
@@ -76,11 +79,14 @@ class UPitBlstm(nn.Module):
         hidden: int = 496,
         num_layers: int = 3,
         num_speakers: int = 2,
+        dropout_rate: float = 0.8,
         *,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
         self.num_layers = num_layers
+        self.num_speakers = num_speakers
+        self.dropout_rate = dropout_rate
         self.input_proj = Dense(input_size, hidden, generator=generator)
         for i in range(num_layers):
             width = hidden if i == 0 else 2 * hidden
@@ -96,3 +102,55 @@ class UPitBlstm(nn.Module):
         for i in range(self.num_layers):
             h = getattr(self, f"bilstm_{i}")(h, plain=plain)
         return self.heads(h, x)
+
+    def train_forward(
+        self,
+        magnitude: torch.Tensor,
+        *,
+        generator: torch.Generator | None = None,
+        compute_dtype: torch.dtype | None = None,
+        plain: bool = False,
+    ) -> torch.Tensor:
+        """Differentiable training forward (counterpart of
+        ``upit_blstm_train_forward``): ``[B, T, input_size]`` → fp32
+        ``[B, T, num_speakers * output_size]``.
+
+        The fp32 master parameters are cast to ``compute_dtype`` (default
+        fp32) differentiably, so they receive fp32 gradients of the cast. Each
+        BiLSTM layer is :func:`~..ops.lstm_train_cuda.bilstm_train`, whose
+        forward and backward recurrences are CUDA kernels (their plain loops
+        on the CPU or with ``plain=True``). ``generator=None`` disables
+        dropout (eval); otherwise dropout at ``dropout_rate`` follows every
+        BiLSTM layer, with bits from ``generator``, not JAX's stream.
+        """
+        dtype = compute_dtype or torch.float32
+        p = {name: value.to(dtype) for name, value in self.named_parameters()}
+
+        def dense(prefix: str, x: torch.Tensor) -> torch.Tensor:
+            return x @ p[f"{prefix}.kernel"] + p[f"{prefix}.bias"]
+
+        x = magnitude.to(dtype)
+        h = torch.tanh(dense("input_proj", x))
+        for layer in range(self.num_layers):
+            cells = f"bilstm_{layer}.cells"
+            h = bilstm_train(
+                h,
+                p[f"{cells}.kernel"],
+                p[f"{cells}.recurrent_kernel"],
+                p[f"{cells}.bias"],
+                compute_dtype=dtype,
+                plain=plain,
+            ).to(dtype)
+            if generator is not None and self.dropout_rate > 0.0:
+                h = dropout(h, self.dropout_rate, generator)
+        outs = [
+            torch.relu(dense(f"heads.mask_head_{s}", h)) * x for s in range(self.num_speakers)
+        ]
+        return torch.cat(outs, dim=-1).to(torch.float32)
+
+
+def dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Keep each value with probability ``1 - rate``, scaled by ``1 / (1 - rate)``;
+    zero the rest (the bits come from ``generator``, on ``h``'s device)."""
+    kept = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - rate
+    return torch.where(kept, h / (1.0 - rate), 0.0).to(h.dtype)

@@ -1,10 +1,11 @@
-"""JAX parameter trees → the port's ``state_dict``s.
+"""JAX parameter trees ↔ the port's ``state_dict``s.
 
 The port's modules keep the flax names and layouts (stacked BiLSTM ``cells``
 with a leading direction axis of 2, ``Dense`` kernels ``[in, out]``), so the
-conversion is a rename: the nested path joined with dots. Pass the tree as
-nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``); this
-module imports no JAX.
+conversion is a rename both ways: the nested path joined with dots, and a
+dotted name split back into nested dicts. Pass and receive trees as nested
+dicts of numpy arrays (``jax.tree.map(np.asarray, params)``); this module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["flatten_params", "upit_blstm_state_dict"]
+__all__ = ["flatten_params", "upit_blstm_state_dict", "upit_blstm_params"]
 
 
 def flatten_params(params: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -37,3 +38,17 @@ def upit_blstm_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     if "params" in params:
         params = params["params"]
     return flatten_params(params)
+
+
+def upit_blstm_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The JAX ``UPitBlstm`` parameter tree (without the ``"params"``
+    collection) from a ``models.upit.UPitBlstm`` state dict: ``{"a.b": tensor}``
+    → ``{"a": {"b": ndarray}}``, float32 numpy arrays on the host."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value.detach().to("cpu", torch.float32).numpy()
+    return tree

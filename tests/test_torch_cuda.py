@@ -16,6 +16,14 @@ from speech_separation_tpu_torch.data.datasets import WaveformLoader
 from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
 from speech_separation_tpu_torch.models.upit import UPitBlstm
 from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence, lstm_recurrence_plain
+from speech_separation_tpu_torch.ops.lstm_train_cuda import (
+    bilstm_reference,
+    bilstm_train,
+    lstm_train_backward,
+    lstm_train_backward_plain,
+    lstm_train_forward,
+    lstm_train_forward_plain,
+)
 from speech_separation_tpu_torch.ops.stft import stft
 from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
 from speech_separation_tpu_torch.separate.pipeline import make_separate_fn
@@ -26,6 +34,15 @@ STFT_ATOL = 1e-4  # fp32 FMA against cuBLAS fp32, sums in another order
 LSTM_ATOL = 1e-4  # fp32 kernel against the fp32 plain loop
 LSTM_BF16_ATOL = 3e-2  # bf16 operands, fp32 carry, against the fp32 plain loop
 PATH_REL = 1e-4  # relative L2 of the fp32 separation output
+# Training kernels against their plain versions on the same inputs. fp32: the
+# same operations, sums in another order. bf16: both round gates, h and
+# dgates to bf16 (8-bit mantissa) at the same places, so they differ only
+# where a sum's last bit flips a bf16 rounding, by one bf16 ulp of values
+# below 1 (3.9e-3 at 0.5 to 1), carried through a few steps: the bound of
+# the serving kernel's bf16 check.
+TRAIN_ATOL = 1e-4
+TRAIN_BF16_ATOL = 3e-2
+GRAD_REL = 1e-4  # relative L2 of bilstm_train's fp32 gradients against autograd
 
 
 @pytest.fixture
@@ -93,3 +110,81 @@ def test_separate_kernel_path_matches_plain(cuda_device, tmp_path):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() <= PATH_REL
+
+
+def _train_inputs(dirs, batch, steps, hidden, device, seed, keep):
+    xw = _normal((dirs, batch, steps, 4 * hidden), seed).to(device)
+    u = (_normal((dirs, hidden, 4 * hidden), seed + 1) / np.sqrt(hidden)).to(device)
+    k = None
+    if keep:  # segment breaks every few steps, in each direction's scan order
+        k = torch.from_numpy(
+            (np.random.default_rng(seed + 2).random((dirs, batch, steps)) > 0.2).astype(np.float32)
+        ).to(device)
+    return xw, u, k
+
+
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, TRAIN_ATOL), (torch.bfloat16, TRAIN_BF16_ATOL)])
+@pytest.mark.parametrize("batch,steps,hidden", [(3, 37, 20), (33, 29, 40)])  # ragged B, T, H
+def test_lstm_train_kernels_match_plain(cuda_device, keep, dtype, atol, batch, steps, hidden):
+    xw, u, k = _train_inputs(2, batch, steps, hidden, cuda_device, seed=4, keep=keep)
+    before = (lstm_train_forward.launches, lstm_train_backward.launches)
+    want = lstm_train_forward_plain(xw, u, keep=k, compute_dtype=dtype)
+    got = lstm_train_forward(xw, u, keep=k, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("out", "gates", "c_all")):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert (g.float() - w.float()).abs().max().item() <= atol, name
+    _, gates, c_all = want
+    dy = _normal((batch, steps, 2 * hidden), seed=7).to(cuda_device).to(dtype)
+    want_dg = lstm_train_backward_plain(gates, c_all, dy, u, keep=k, compute_dtype=dtype)
+    got_dg = lstm_train_backward(gates, c_all, dy, u, keep=k, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got_dg.dtype == dtype and got_dg.shape == (2, batch, steps, 4 * hidden)
+    assert (got_dg.float() - want_dg.float()).abs().max().item() <= atol
+    assert (lstm_train_forward.launches, lstm_train_backward.launches) == (
+        before[0] + 1, before[1] + 1,
+    )
+
+
+@pytest.mark.parametrize("keep", [False, True])
+def test_bilstm_train_grads_match_autograd(cuda_device, keep):
+    b, t, f, h = 5, 23, 12, 20
+    x = (_normal((b, t, f), seed=8) * 0.5).to(cuda_device)
+    kernel = (_normal((2, f, 4 * h), seed=9) * 0.3).to(cuda_device)
+    rec = (_normal((2, h, 4 * h), seed=10) * 0.3).to(cuda_device)
+    bias = (_normal((2, 4 * h), seed=11) * 0.1).to(cuda_device)
+    _, _, k = _train_inputs(2, b, t, h, cuda_device, seed=12, keep=keep)
+    w = _normal((b, t, 2 * h), seed=13).to(cuda_device)
+    grads = []
+    for run in (
+        lambda *a: bilstm_train(*a, keep=k, compute_dtype=torch.float32),
+        lambda *a: bilstm_reference(*a, keep=k),
+    ):
+        params = [p.clone().requires_grad_() for p in (x, kernel, rec, bias)]
+        (run(*params) * w).sum().backward()
+        grads.append([p.grad for p in params])
+    for got, want in zip(*grads):
+        assert ((got - want).norm() / want.norm()).item() <= GRAD_REL
+
+
+def test_train_step_kernel_path_matches_plain(cuda_device):
+    from speech_separation_tpu_torch import train
+
+    sources = (_normal((2, 2, 6000), seed=14) * 0.1).to(cuda_device)
+    lengths = torch.tensor([48, 40], dtype=torch.int32, device=cuda_device)
+    arrays = (sources.sum(dim=1), sources, lengths)
+    losses, params = {}, {}
+    for kind in ("kernel", "plain"):
+        model = UPitBlstm(hidden=40, num_layers=2, dropout_rate=0.0,
+                          generator=torch.Generator().manual_seed(0)).to(cuda_device)
+        state = train.TrainState.create(model, train.exponential_decay_adam(), seed=0)
+        before = (lstm_train_forward.launches, lstm_train_backward.launches)
+        train_step, eval_step = train.make_upit_waveform_steps(model, plain=kind == "plain")
+        losses[kind] = [train_step(state, *arrays)[1].item() for _ in range(3)]
+        losses[kind].append(eval_step(state, *arrays).item())
+        launched = (lstm_train_forward.launches - before[0], lstm_train_backward.launches - before[1])
+        assert launched == ((2 * 4, 2 * 3) if kind == "kernel" else (0, 0))
+        params[kind] = torch.cat([p.detach().flatten() for p in model.parameters()])
+    np.testing.assert_allclose(losses["kernel"], losses["plain"], rtol=1e-5)
+    assert ((params["kernel"] - params["plain"]).norm() / params["plain"].norm()).item() <= 1e-4

@@ -151,11 +151,16 @@ def test_port_imports_without_jax():
 
 def test_build_command_targets_sm90a_with_every_source(tmp_path):
     names = sorted(s.name for s in _build.SOURCES)
-    assert names == ["lstm_recurrence.cu", "stft_analysis.cu"]
-    cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    assert [pathlib.Path(c).name for c in cmd if c.endswith(".cu")] == names
-    assert all(pathlib.Path(c).is_file() for c in cmd if c.endswith(".cu"))
+    assert names == ["lstm_recurrence.cu", "lstm_train_backward.cu", "stft_analysis.cu"]
+    *compiles, link = _build.nvcc_commands("nvcc", tmp_path / "lib.so")
+    # one compile per source, run together, then one link of their objects
+    assert all("arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd for cmd in compiles)
+    sources = [c for cmd in compiles for c in cmd if c.endswith(".cu")]
+    assert [pathlib.Path(c).name for c in sources] == names
+    assert all(pathlib.Path(c).is_file() for c in sources)
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+    assert link[link.index("-o") + 1] == str(tmp_path / "lib.so")
+    assert [c for c in link if c.endswith(".o")] == [cmd[-1] for cmd in compiles]
 
 
 def test_find_nvcc_raises_without_a_toolkit(monkeypatch):
