@@ -31,7 +31,22 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 8. training timing — ``bench_blstm_train``'s shape (32 utterances × 8 s,
    T=501): the train step, kernel path against plain path in fp32 and bf16,
    in audio-seconds trained per second, and each training kernel alone
-   against its plain version.
+   against its plain version;
+9. the Conv-TasNet trunk kernel against its plain version at full width
+   (B=4, cb 128, ch 256, 21 blocks, dilations 1 to 64) at K=8000 frames and
+   at a ragged K=8003, weights from the full-width ``ConvTasNet``
+   (2,226,092 random parameters from seed 0, norms, biases and slopes
+   perturbed), with a bit-identical rerun;
+10. Conv-TasNet serving path — a port checkpoint of that model, then ``cli
+   separate --kernel pallas`` over the ``tt`` split of a synthetic fixture (8
+   mixtures), counting the trunk kernel's launches; on one batch,
+   ``cuda_apply`` against the fp32 module and against ``cuda_apply`` with the
+   plain trunk, the fp32 module against ``fused_apply`` in fp32; a causal
+   checkpoint with ``--kernel pallas`` must exit non-zero;
+11. Conv-TasNet timing at ``bench.py::bench_tasnet``'s shape (64 × 8 s,
+   ``default_rng(0)`` normal × 0.1), win 16 and 32: the module in fp32 and
+   bf16 and ``cuda_apply`` (kernel and plain trunk) in ×-real-time, and the
+   trunk kernel alone against its plain version.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -66,6 +81,16 @@ TRAIN_TOL = 1e-4
 TRAIN_BF16_TOL = 3e-2
 GRAD_REL_TOL = 1e-4  # relative L2 of bilstm_train's fp32 gradients against autograd
 STEP_REL_TOL = 1e-5  # fp32 loss, kernel path against plain path
+TASNET_BATCH = 64  # bench.py::bench_tasnet: 64 utterances x 8 s
+# The trunk kernel against its plain version: both store h, skip, t1 and t2
+# in bf16 at the same places; a sum in another order flips one bf16 rounding
+# (2^-8 relative), which later blocks carry, so 3e-2 of the largest |skip|.
+TRUNK_BF16_TOL = 3e-2
+SERVE_DB = 22.0  # cuda_apply (bf16) against the fp32 module: the JAX bound
+# cuda_apply with the kernel trunk against the plain trunk, both bf16: only
+# the trunk's summation order differs, so tighter than against fp32
+TRUNK_PATH_DB = 30.0
+FUSED_DB = 90.0  # the fp32 module against fused_apply fp32: the same math
 
 
 def phase(name: str, message: str) -> None:
@@ -252,6 +277,9 @@ def main() -> int:
                   f"kernel {lstm_ms[tag][0]:.2f} ms, plain {lstm_ms[tag][1]:.2f} ms")
 
     train = training_phases(device, model, gen)
+    del model
+    torch.cuda.empty_cache()
+    tasnet = tasnet_phases(device, gen)
 
     kernels = [
         {
@@ -278,12 +306,200 @@ def main() -> int:
             "plain_ms_bf16": lstm_ms["bf16"][1],
         },
         *train,
+        tasnet,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def snr_db(ref, est) -> float:
+    import torch
+
+    return (10 * torch.log10(ref.double().square().sum()
+                             / (ref.double() - est.double()).square().sum().clamp_min(1e-30))).item()
+
+
+def tasnet_phases(device, gen) -> dict:
+    """Phases 9 to 11; returns the trunk kernel's entry of the kernels line."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from speech_separation_tpu_torch import cli
+    from speech_separation_tpu_torch import train as train_mod
+    from speech_separation_tpu_torch.data.audio_io import read_wav
+    from speech_separation_tpu_torch.data.datasets import WaveformLoader
+    from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.models.tasnet import ConvTasNet
+    from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply, fused_apply
+    from speech_separation_tpu_torch.ops.tcn_cuda import (
+        stack_tcn_weights,
+        tcn_trunk_cuda,
+        tcn_trunk_plain,
+    )
+    from speech_separation_tpu_torch.utils import UPitTrainConfig, save_config
+
+    def full_width(win: int = 16, causal: bool = False) -> ConvTasNet:
+        m = ConvTasNet(win=win, causal=causal, generator=torch.Generator().manual_seed(0))
+        pert = torch.Generator().manual_seed(1)
+        scale = {"gamma": 0.2, "beta": 0.1, "bias": 0.1, "alpha": 0.05}
+        with torch.no_grad():  # init leaves gamma 1, beta and biases 0: the folds need more
+            for name, p in m.named_parameters():
+                s = scale.get(name.rsplit(".", 1)[-1])
+                if s:
+                    p += s * torch.randn(p.shape, generator=pert)
+        return m.to(device).eval()
+
+    dils = tuple(2**x for _ in range(3) for x in range(7))
+
+    # 9. the trunk kernel against its plain version at full width
+    model = full_width()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != 2_226_092:
+        raise AssertionError(f"ConvTasNet has {n_params} params, expected 2,226,092")
+    stacks = stack_tcn_weights(dict(model.state_dict()), blocks=7, repeats=3)
+    trunk_err = 0.0
+    before = tcn_trunk_cuda.launches
+    for frames in (8000, 8003):
+        h0 = torch.randn(4, frames, 128, generator=gen, device=device)
+        want = tcn_trunk_plain(h0, *stacks, dils=dils)
+        got = tcn_trunk_cuda(h0, *stacks, dils=dils)
+        again = tcn_trunk_cuda(h0, *stacks, dils=dils)
+        torch.cuda.synchronize()
+        peak = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        bound = TRUNK_BF16_TOL * max(1.0, peak)
+        if got.shape != want.shape or not err <= bound or not torch.equal(got, again):
+            raise AssertionError(f"tcn_trunk K={frames}: shape {tuple(got.shape)}, max abs err "
+                                 f"{err} (bound {bound}), rerun identical {torch.equal(got, again)}")
+        trunk_err = max(trunk_err, err)
+        phase("tasnet-kernel", f"tcn_trunk B=4 K={frames} cb=128 ch=256 21 blocks bf16: max abs "
+              f"err {err:.3e} <= {bound:.3e} (3e-2 x max |skip| {peak:.2f}); rerun bit-identical")
+    phase("tasnet-kernel", f"tcn_trunk launches in these checks: {tcn_trunk_cuda.launches - before}")
+
+    # 10. serving path through the port's CLI at full width
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tasnet_") as tmp:
+        tmp = pathlib.Path(tmp)
+        root = make_synthetic_fixture(tmp / "fixture", utterances_per_split={"tr": 1, "cv": 1, "tt": 8})
+        for name, causal in (("ckpt", False), ("ckpt_causal", True)):
+            m = model if not causal else full_width(causal=True)
+            state = train_mod.TrainState.create(m, train_mod.adam(), seed=0)
+            train_mod.CheckpointManager(tmp / name).save_if_best(0, state, 0.0)
+            save_config(UPitTrainConfig(variant="tasnet", seed=0, batch_size=4, tasnet_causal=causal),
+                        tmp / name / "train_config.json")
+        out = tmp / "sep"
+        tcn_trunk_cuda.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["separate", "--checkpoint-dir", str(tmp / "ckpt"), "--data-root", str(root),
+                  "--out-dir", str(out), "--kernel", "pallas"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = tcn_trunk_cuda.launches
+        if launches <= 0:
+            raise AssertionError("tcn_trunk never launched in cli separate --kernel pallas")
+        names = (root / "lists" / "tt_wav.lst").read_text().split()
+        wavs = sorted(out.glob("*.wav"))
+        if len(wavs) != 2 * len(names):
+            raise AssertionError(f"cli separate wrote {len(wavs)} wavs for {len(names)} mixtures")
+        for n in names:
+            mix, _ = read_wav(root / "tt" / "mix" / n)
+            for s in (1, 2):
+                est, _ = read_wav(out / f"{n[:-4]}_s{s}.wav")
+                if len(est) != len(mix) or not np.isfinite(est).all():
+                    raise AssertionError(f"{n} s{s}: {len(est)} samples for a {len(mix)}-sample mix")
+        phase("tasnet-serve", f"cli separate --kernel pallas tt ({len(names)} mixtures, ConvTasNet "
+              f"{n_params:,} params): {len(wavs)} wavs of their mixtures' lengths in "
+              f"{seconds:.2f} s; tcn_trunk launches {launches}")
+
+        batch = next(iter(WaveformLoader(root / "tt", batch_size=4)))
+        mix = torch.from_numpy(batch.mix).to(device)
+        with torch.no_grad():
+            ref = model(mix)
+        got = cuda_apply(model, mix)
+        plain = cuda_apply(model, mix, plain=True)
+        fused = fused_apply(model, mix, dtype=None)
+        torch.cuda.synchronize()
+        snrs = {"cuda_apply vs fp32 module": (snr_db(ref, got), SERVE_DB),
+                "cuda_apply vs plain trunk": (snr_db(plain, got), TRUNK_PATH_DB),
+                "fp32 module vs fused_apply fp32": (snr_db(ref, fused), FUSED_DB)}
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"cuda_apply output {tuple(got.shape)} not finite or misshaped")
+        for what, (value, bound) in snrs.items():
+            if not value >= bound:
+                raise AssertionError(f"{what}: SNR {value:.2f} dB < {bound} dB")
+        phase("tasnet-serve", f"one batch {tuple(mix.shape)}: " + "; ".join(
+            f"{what} {value:.2f} dB >= {bound}" for what, (value, bound) in snrs.items()))
+
+        try:
+            cli.main(["separate", "--checkpoint-dir", str(tmp / "ckpt_causal"), "--data-root",
+                      str(root), "--out-dir", str(tmp / "sep_causal"), "--kernel", "pallas"])
+        except SystemExit as exc:
+            if exc.code in (0, None):
+                raise AssertionError(f"causal checkpoint with --kernel pallas exited {exc.code!r}")
+            phase("tasnet-serve", f"causal checkpoint with --kernel pallas refused: {exc.code}")
+        else:
+            raise AssertionError("a causal checkpoint ran through --kernel pallas")
+    del model, stacks
+
+    # 11. timing at bench_tasnet's shape
+    samples = int(BENCH_SECONDS * SAMPLE_RATE)
+    mix = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((TASNET_BATCH, samples)).astype(np.float32) * 0.1
+    ).to(device)
+    audio_s = TASNET_BATCH * BENCH_SECONDS
+    trunk_ms = {}
+    for win in (16, 32):
+        m = full_width(win)
+        m16 = copy.deepcopy(m).to(torch.bfloat16)
+        paths = {
+            "module fp32": lambda: m(mix),
+            "module bf16": lambda: m16(mix),
+            "cuda_apply plain trunk": lambda: cuda_apply(m, mix, plain=True),
+            "cuda_apply": lambda: cuda_apply(m, mix),
+        }
+        times = {}
+        with torch.inference_mode():
+            for order in (list(paths), list(reversed(paths))):
+                for what in order:
+                    times.setdefault(what, []).append(cuda_ms(paths[what], iters=3))
+        for what, vals in times.items():
+            ms = min(vals)
+            phase("tasnet-timing", f"win {win} {what}, {TASNET_BATCH} x {BENCH_SECONDS:.0f} s: "
+                  f"{ms:.2f} ms/batch = {audio_s / (ms / 1e3):,.0f}x real time "
+                  f"(runs {', '.join(f'{v:.2f}' for v in vals)} ms)")
+        k = samples // (win // 2)
+        st = stack_tcn_weights(dict(m.state_dict()), blocks=7, repeats=3)
+        h0 = torch.randn(TASNET_BATCH, k, 128, generator=gen, device=device).to(torch.bfloat16)
+        runs = {"plain": [], "kernel": []}
+        for kind in ("plain", "kernel", "kernel", "plain"):
+            fn = tcn_trunk_plain if kind == "plain" else tcn_trunk_cuda
+            runs[kind].append(cuda_ms(lambda: fn(h0, *st, dils=dils), iters=3))
+        trunk_ms[win] = (min(runs["kernel"]), min(runs["plain"]))
+        flops = 2 * TASNET_BATCH * k * 21 * (128 * 256 + 256 * 256)
+        phase("tasnet-timing", f"tcn_trunk win {win} B={TASNET_BATCH} K={k}: kernel "
+              f"{trunk_ms[win][0]:.2f} ms ({flops / trunk_ms[win][0] / 1e9:.1f} TFLOP/s in the "
+              f"1x1 products), plain {trunk_ms[win][1]:.2f} ms (runs kernel "
+              f"{', '.join(f'{v:.2f}' for v in runs['kernel'])}; plain "
+              f"{', '.join(f'{v:.2f}' for v in runs['plain'])})")
+        del m, m16, st, h0
+        torch.cuda.empty_cache()
+
+    return {
+        "name": "tcn_trunk",
+        "route": "cuda",
+        "source": "speech_separation_tpu_torch/csrc/tcn_trunk.cu",
+        "replaces": "speech_separation_tpu/ops/tcn_pallas.py:280",
+        "launches": launches,
+        "max_abs_err": trunk_err,
+        "ms": trunk_ms[16][0],
+        "plain_ms": trunk_ms[16][1],
+        "ms_win32": trunk_ms[32][0],
+        "plain_ms_win32": trunk_ms[32][1],
+    }
 
 
 def max_err(got, want) -> float:

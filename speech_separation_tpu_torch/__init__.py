@@ -5,16 +5,19 @@ nor ``speech_separation_tpu``. Module paths mirror the JAX package's:
 
 - ``ops``      : framing, windows, STFT/iSTFT, features (PSM labels), int16
                  quantization, and the CUDA kernels' wrappers (``stft_cuda``,
-                 ``lstm_cuda``, ``lstm_train_cuda``);
+                 ``lstm_cuda``, ``lstm_train_cuda``, ``tcn_cuda``);
 - ``models``   : the uPIT BLSTM separator as ``nn.Module``s, with its
-                 training forward;
+                 training forward; Conv-TasNet and its folded serving paths
+                 (``fused_apply``, ``cuda_apply``);
 - ``losses``   : the PIT loss;
 - ``train``    : Adam with optax's semantics, train state, steps,
                  checkpoints and the epoch loop;
 - ``data``     : audio I/O, the waveform loader, the synthetic fixture;
-- ``separate`` : wave-to-wave separation of a directory;
+- ``separate`` : wave-to-wave separation of a directory; Conv-TasNet's
+                 overlapped-chunk stitching;
 - ``utils``    : the training config and the metrics log;
-- ``cli``      : ``train`` and ``separate`` from the command line;
+- ``cli``      : ``train`` (uPIT BLSTM) and ``separate`` (uPIT BLSTM and
+                 Conv-TasNet) from the command line;
 - ``weights``  : JAX parameter trees ↔ ``state_dict``s;
 - ``_build``   : builds ``csrc/*.cu`` with nvcc for sm_90a at first use.
 """

@@ -46,6 +46,9 @@ _SIGNATURES = {
     # gates, c_all, dy, u, dc, keep, dgates, dirs, batch, steps, hidden,
     # reverse_mask, bf16, stream
     "sst_lstm_train_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # h, skip, t1, t2, part, we, wdw, wg, vecs, dils (host int array), batch,
+    # frames, cb, ch, vdim, taps, blocks, stream
+    "sst_tcn_trunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -3,13 +3,19 @@
     python -m speech_separation_tpu_torch.cli train --workload upit \\
         --config cfg.json --data-root D --epochs N --checkpoint-dir C [--resume]
     python -m speech_separation_tpu_torch.cli separate --checkpoint-dir C \\
-        --data-root D --split tt --out-dir O [--bf16]
+        --data-root D --split tt --out-dir O [--bf16] [--batch-size N] \\
+        [--kernel {xla,pallas}] [--pad-quantum-seconds S] \\
+        [--chunk-seconds S --chunk-overlap-seconds S] [--transfer-int16]
 
 ``train`` trains the uPIT BLSTM separator from raw waveforms (the ``blstm``
 variant of the JAX ``train``), writing ``train_config.json``,
 ``metrics.jsonl`` and the best checkpoints to the checkpoint directory.
-``separate`` loads the best checkpoint into ``separate_directory``. Both run
-on the GPU when there is one, else on the CPU. The other subcommands and
+``separate`` loads the best checkpoint: a ``blstm`` checkpoint goes to
+``separate_directory``; a ``tasnet`` (Conv-TasNet) checkpoint to the
+time-domain path, whole utterances or overlapped chunks, with ``--kernel
+pallas`` running the TCN trunk in the ``tcn_trunk`` CUDA kernel (bf16; the
+JAX flag's name) and ``--kernel xla`` the module's own forward. Both run on
+the GPU when there is one, else on the CPU. The other subcommands and
 options of the JAX CLI wait for later slices.
 """
 
@@ -29,8 +35,22 @@ def _device() -> torch.device:
 
 
 def _build_model(cfg, device: torch.device):
+    from .models.tasnet import ConvTasNet
     from .models.upit import UPitBlstm
 
+    if cfg.variant == "tasnet":
+        model = ConvTasNet(
+            num_speakers=cfg.num_speakers,
+            enc_dim=cfg.tasnet_enc_dim,
+            win=cfg.tasnet_win,
+            bottleneck=cfg.tasnet_bottleneck,
+            hidden=cfg.tasnet_hidden,
+            blocks=cfg.tasnet_blocks,
+            repeats=cfg.tasnet_repeats,
+            causal=cfg.tasnet_causal,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        )
+        return model.to(device)
     model = UPitBlstm(
         hidden=cfg.hidden,
         num_layers=cfg.num_layers,
@@ -67,6 +87,11 @@ def cmd_train(args) -> None:
         args.config,
         dict(data_root=args.data_root, epochs=args.epochs, checkpoint_dir=args.checkpoint_dir),
     )
+    if cfg.variant != "blstm":
+        raise SystemExit(
+            f"error: the PyTorch port trains only variant 'blstm' so far; "
+            f"variant {cfg.variant!r} is served (cli separate), not trained"
+        )
     device = _device()
     model = _build_model(cfg, device)
     train_step, eval_step = train.make_upit_waveform_steps(
@@ -152,6 +177,9 @@ def cmd_separate(args) -> None:
 
     device = _device()
     cfg, model = _restore_upit(args.checkpoint_dir, device)
+    if cfg.variant == "tasnet":
+        _separate_time_domain(cfg, model, args, device)
+        return
     written = separate_directory(
         model,
         pathlib.Path(args.data_root or cfg.data_root) / args.split,
@@ -159,11 +187,108 @@ def cmd_separate(args) -> None:
         size=cfg.stft.size,
         shift=cfg.stft.shift,
         num_speakers=cfg.num_speakers,
-        batch_size=cfg.batch_size,
+        batch_size=args.batch_size or cfg.batch_size,
         sample_rate=cfg.stft.sample_rate,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
+        transfer_int16=args.transfer_int16,
     )
     print(json.dumps({"written": len(written), "out_dir": str(args.out_dir), "device": str(device)}))
+
+
+def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
+    """Conv-TasNet serving of a split (the JAX ``_separate_time_domain``'s
+    full-utterance and chunked branches)."""
+    import copy
+
+    import numpy as np
+
+    from .data.audio_io import audiowrite, wait_for_pending_writes
+    from .data.datasets import WaveformLoader
+    from .ops.quant import dequant_i16, dequantize_estimates_i16, quantize_estimates_i16
+
+    use_kernel = args.kernel == "pallas"
+    if use_kernel and cfg.tasnet_causal:
+        raise SystemExit(
+            "error: --kernel pallas runs the fused TCN trunk, which implements the gLN "
+            "topology only; this checkpoint is causal (cLN, tasnet_causal=true). "
+            "Use --kernel xla."
+        )
+    model.eval()
+    if use_kernel:
+        # the trunk kernel pads nothing: pad to the encoder stride, trim after
+        from .models.tasnet_serving import cuda_apply
+
+        stride = cfg.tasnet_win // 2
+
+        def base(m: torch.Tensor) -> torch.Tensor:
+            orig = m.shape[1]
+            est = cuda_apply(model, torch.nn.functional.pad(m, (0, (-orig) % stride)))
+            return est[:, :, :orig]
+
+    else:
+        # serving precision: convs and products in bf16, norm statistics fp32
+        net = copy.deepcopy(model).to(torch.bfloat16) if args.bf16 else model
+
+        def base(m: torch.Tensor) -> torch.Tensor:
+            return net(m)
+
+    # int16 transfer applies to the full-utterance path; chunks are sliced
+    # from float waveforms on the host
+    use_int16 = args.transfer_int16 and not args.chunk_seconds
+
+    @torch.inference_mode()
+    def separate(m: torch.Tensor):
+        m = m.to(device)
+        if use_int16:
+            return quantize_estimates_i16(base(dequant_i16(m)).float())
+        return base(m.float())
+
+    out_dir = pathlib.Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    loader = WaveformLoader(
+        pathlib.Path(args.data_root or cfg.data_root) / args.split,
+        batch_size=args.batch_size or cfg.batch_size,
+        sample_rate=cfg.stft.sample_rate,
+        num_speakers=cfg.num_speakers,
+        pad_quantum_seconds=args.pad_quantum_seconds,
+        transfer_int16=use_int16,
+    )
+
+    def write(wav: np.ndarray, stem: str, s: int) -> None:
+        audiowrite(wav, out_dir / f"{stem}_s{s + 1}.wav", cfg.stft.sample_rate,
+                   normalize=True, threaded=True)
+
+    written = 0
+    for b in loader:
+        if args.chunk_seconds:
+            # any length: fixed overlapped chunks, permutation-aligned crossfade
+            from .separate.tasnet_chunked import separate_chunked
+
+            for i, name in enumerate(b.names):
+                est = separate_chunked(
+                    separate,
+                    b.mix[i, : int(b.sample_lengths[i])],
+                    num_speakers=cfg.num_speakers,
+                    sample_rate=cfg.stft.sample_rate,
+                    chunk_seconds=args.chunk_seconds,
+                    overlap_seconds=args.chunk_overlap_seconds,
+                )
+                for s in range(cfg.num_speakers):
+                    write(est[s], pathlib.Path(name).stem, s)
+                    written += 1
+            continue
+        out = separate(torch.from_numpy(b.mix))
+        if use_int16:
+            codes, scale = out
+            est = dequantize_estimates_i16(codes.cpu().numpy(), scale.cpu().numpy())
+        else:
+            est = out.cpu().numpy()
+        for i, name in enumerate(b.names):
+            for s in range(cfg.num_speakers):
+                write(est[i, s, : int(b.sample_lengths[i])], pathlib.Path(name).stem, s)
+                written += 1
+    wait_for_pending_writes()
+    print(json.dumps({"written": written, "out_dir": str(out_dir), "device": str(device)}))
 
 
 def main(argv=None) -> None:
@@ -184,7 +309,40 @@ def main(argv=None) -> None:
     p.add_argument("--data-root")
     p.add_argument("--split", default="tt")
     p.add_argument("--out-dir", default="./test_wav")
+    p.add_argument("--batch-size", type=int)
     p.add_argument("--bf16", action="store_true", help="bf16 mask network (serving precision)")
+    p.add_argument(
+        "--transfer-int16",
+        action="store_true",
+        help="int16 PCM to the device and int16 estimates back (per-signal scale, no "
+        "clipping); the full-utterance path only",
+    )
+    p.add_argument(
+        "--kernel",
+        default="xla",
+        choices=["xla", "pallas"],
+        help="tasnet serving: 'pallas' runs the TCN trunk in the tcn_trunk CUDA kernel "
+        "(bf16; implies --bf16); 'xla' the module's own forward",
+    )
+    p.add_argument(
+        "--pad-quantum-seconds",
+        type=float,
+        default=1.0,
+        help="tasnet: round padded batch lengths up to a multiple of this (default 1.0)",
+    )
+    p.add_argument(
+        "--chunk-seconds",
+        type=float,
+        default=0.0,
+        help="tasnet: separate in fixed overlapped chunks (any utterance length; "
+        "permutation-aligned crossfade; gLN statistics become chunk-local)",
+    )
+    p.add_argument(
+        "--chunk-overlap-seconds",
+        type=float,
+        default=1.0,
+        help="overlap between serving chunks (with --chunk-seconds)",
+    )
     p.set_defaults(func=cmd_separate)
 
     args = parser.parse_args(argv)

@@ -1,0 +1,291 @@
+"""Fused Conv-TasNet TCN trunk for serving (counterpart of ``ops/tcn_pallas.py``
+and the forward-only helpers of ``ops/tcn_train_pallas.py``).
+
+:func:`tcn_trunk_cuda` runs every dilated block of the trunk in
+``csrc/tcn_trunk.cu`` and returns the skip sum. :func:`tcn_trunk_plain` is its
+plain PyTorch version, which the wrapper takes only for a tensor on the CPU;
+on a CUDA tensor it launches the kernel or raises. :func:`trunk_reference` is
+the fp32 oracle over the canonical stack.
+
+Per block ``j`` (``stack_tcn_weights``' arrays, gLN folded as in
+``tcn_pallas._make_kernel``):
+
+    t1  = prelu(h @ We + b_e)                        stats1 from fp32 t1, t1 stored bf16
+    A1  = g1 / sigma1,  B1 = be1 - mu1 · A1
+    t2  = prelu(Σ_t (A1 · w_t) · t1[k + t·d − pad] + B1 · Σ_t w_t + b_dw − edge)
+                                                     stats2 from fp32 t2, t2 stored bf16
+    rs  = (t2 @ Wg) / sigma2 + biasc − (mu2 / sigma2) · csum
+    h   = bf16(h + rs[:, :cb]),  skip = bf16(skip + rs[:, cb:])
+
+where a tap outside ``[0, K)`` reads zero and ``edge`` subtracts ``B1 · w_t``
+for it (the SAME zero-padding is of the *normalised* tensor). Products take
+bf16 operands with fp32 accumulation; statistics and epilogues are fp32. The
+plain version rounds at exactly these places.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Mapping, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+
+__all__ = [
+    "MAX_DILATION",
+    "stack_canonical",
+    "stack_tcn_weights",
+    "trunk_reference",
+    "tcn_trunk_plain",
+    "tcn_trunk_cuda",
+]
+
+MAX_DILATION = 64  # tcn_trunk_pallas' slab halo; its assert is kept
+_EPS = 1e-8
+# csrc/tcn_trunk.cu's tiles, which size the per-tile statistics scratch
+_TILE_ROWS = 64
+_TILE_COLS = 128
+
+
+def stack_canonical(params: Mapping[str, torch.Tensor], *, blocks: int, repeats: int):
+    """Stack the per-block parameters of a ``ConvTasNet`` (dotted names, as in
+    ``named_parameters()``) into the canonical arrays, all fp32:
+
+      we   [N, cb, ch]   expand 1x1 kernels
+      wdw  [N, taps, ch] depthwise kernels
+      wcat [N, ch, 2cb]  concat(res, skip) 1x1 kernels
+      vecs [N, 10, vdim] per-block vectors (vdim = max(ch, 2cb)):
+        0: expand bias   1: norm1 gamma  2: norm1 beta   3: depthwise bias
+        4: norm2 gamma   5: norm2 beta   6: bcat (padded) 7: zeros
+        8: prelu1 alpha (broadcast)      9: prelu2 alpha (broadcast)
+    """
+    we, wdw, wcat, vecs = [], [], [], []
+    for r in range(repeats):
+        for x in range(blocks):
+            pre = f"tcn_{r}_{x}."
+
+            def get(name: str) -> torch.Tensor:
+                return params[pre + name].float()
+
+            w_cat = torch.cat([get("res_out.kernel")[0], get("skip_out.kernel")[0]], dim=1)
+            b_cat = torch.cat([get("res_out.bias"), get("skip_out.bias")])
+            ch, out2 = w_cat.shape
+            vdim = max(ch, out2)
+            ones = torch.ones(vdim, device=w_cat.device)
+
+            def row(v: torch.Tensor, vdim: int = vdim) -> torch.Tensor:
+                return F.pad(v, (0, vdim - v.shape[0]))
+
+            we.append(get("expand.kernel")[0])
+            wdw.append(get("depthwise.kernel")[:, 0, :])
+            wcat.append(w_cat)
+            vecs.append(torch.stack([
+                row(get("expand.bias")),
+                row(get("norm1.gamma")),
+                row(get("norm1.beta")),
+                row(get("depthwise.bias")),
+                row(get("norm2.gamma")),
+                row(get("norm2.beta")),
+                row(b_cat),
+                torch.zeros_like(ones),
+                get("prelu1.alpha")[0] * ones,
+                get("prelu2.alpha")[0] * ones,
+            ]))
+    return torch.stack(we), torch.stack(wdw), torch.stack(wcat), torch.stack(vecs)
+
+
+def stack_tcn_weights(params: Mapping[str, torch.Tensor], *, blocks: int, repeats: int):
+    """The kernel's input arrays ``(we, wdw, wg, vecs)``, derived from
+    :func:`stack_canonical` as ``tcn_pallas.stack_tcn_weights`` derives them:
+
+      we   [N, cb, ch]    bf16 - expand 1x1 kernels
+      wdw  [N, taps, ch]  fp32 - depthwise kernels
+      wg   [N, ch, 2cb]   bf16 - gamma2-folded concat(res, skip)
+      vecs [N, 8, vdim]   fp32 - per-block vectors:
+        0: expand bias   1: norm1 gamma  2: norm1 beta  3: depthwise bias
+        4: beta2 @ W_cat + bias_cat (biasc)  5: colsum(gamma2 * W_cat) (csum)
+        6: prelu1 alpha (broadcast)     7: prelu2 alpha (broadcast)
+
+    ``biasc`` and ``csum`` are taken from the fp32 fold; only ``wg`` is rounded.
+    """
+    we, wdw, wcat, cvecs = stack_canonical(params, blocks=blocks, repeats=repeats)
+    ch, out2 = wcat.shape[1:]
+    vdim = cvecs.shape[2]
+    g2, b2, bcat = cvecs[:, 4, :ch], cvecs[:, 5, :ch], cvecs[:, 6, :out2]
+    wgf = g2[:, :, None] * wcat
+
+    def pad(v: torch.Tensor) -> torch.Tensor:
+        return F.pad(v, (0, vdim - v.shape[1]))
+
+    vecs = torch.stack(
+        [
+            cvecs[:, 0],
+            cvecs[:, 1],
+            cvecs[:, 2],
+            cvecs[:, 3],
+            pad(torch.einsum("nc,nco->no", b2, wcat) + bcat),
+            pad(wgf.sum(dim=1)),
+            cvecs[:, 8],
+            cvecs[:, 9],
+        ],
+        dim=1,
+    )
+    return we.to(torch.bfloat16), wdw.float(), wgf.to(torch.bfloat16), vecs
+
+
+def trunk_reference(h0, we, wdw, wcat, vecs, *, dils: Sequence[int], taps: int = 3):
+    """fp32 reference of the trunk over the canonical arrays (differentiable):
+    the skip sum ``[B, K, cb]``."""
+    k, cb = h0.shape[1:]
+    ch = we.shape[2]
+    h = h0.float()
+    skip = torch.zeros_like(h)
+    for j, d in enumerate(dils):
+        be, g1, b1, bdw = (vecs[j, i, :ch] for i in range(4))
+        g2, b2 = vecs[j, 4, :ch], vecs[j, 5, :ch]
+        bcat = vecs[j, 6, : 2 * cb]
+        a1, a2 = vecs[j, 8, 0], vecs[j, 9, 0]
+        t1p = h @ we[j] + be
+        t1 = torch.where(t1p >= 0, t1p, a1 * t1p)
+        n1 = g1 * (t1 - _mean(t1)) * _inv_std(t1) + b1
+        pad = (taps - 1) * d // 2
+        n1p = F.pad(n1, (0, 0, pad, pad))
+        dconv = sum(wdw[j, t] * n1p[:, t * d : t * d + k, :] for t in range(taps)) + bdw
+        t2 = torch.where(dconv >= 0, dconv, a2 * dconv)
+        n2 = g2 * (t2 - _mean(t2)) * _inv_std(t2) + b2
+        rs = n2 @ wcat[j] + bcat
+        h = h + rs[..., :cb]
+        skip = skip + rs[..., cb:]
+    return skip
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=(1, 2), keepdim=True)
+
+
+def _inv_std(x: torch.Tensor) -> torch.Tensor:
+    mu = _mean(x)
+    return torch.rsqrt(torch.clamp((x * x).mean(dim=(1, 2), keepdim=True) - mu * mu, min=0.0) + _EPS)
+
+
+def _check(h0, we, wdw, wg, vecs, dils, taps):
+    """Validate the trunk's inputs as ``tcn_trunk_pallas`` asserts them, plus
+    dtypes and shapes; returns ``(batch, frames, cb, ch, blocks)``."""
+    if h0.dim() != 3 or we.dim() != 3 or wdw.dim() != 3 or wg.dim() != 3 or vecs.dim() != 3:
+        raise ValueError("tcn_trunk: expected h0 [B, K, cb], we, wdw, wg and vecs of rank 3")
+    b, k, cb = h0.shape
+    n, _, ch = we.shape
+    if len(dils) != n:
+        raise ValueError(f"tcn_trunk: {len(dils)} dilations for {n} blocks")
+    if max(dils) > MAX_DILATION or min(dils) < 1:
+        raise ValueError(f"tcn_trunk: dilations {tuple(dils)} outside [1, {MAX_DILATION}]")
+    want = {"we": (n, cb, ch), "wdw": (n, taps, ch), "wg": (n, ch, 2 * cb)}
+    for name, t in (("we", we), ("wdw", wdw), ("wg", wg)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"tcn_trunk: {name} {tuple(t.shape)}, expected {want[name]}")
+    if vecs.shape[0] != n or vecs.shape[1] != 8 or vecs.shape[2] < max(ch, 2 * cb):
+        raise ValueError(f"tcn_trunk: vecs {tuple(vecs.shape)}, expected [{n}, 8, >= {max(ch, 2 * cb)}]")
+    if we.dtype != torch.bfloat16 or wg.dtype != torch.bfloat16:
+        raise TypeError(f"tcn_trunk: we and wg must be bf16, got {we.dtype} and {wg.dtype}")
+    if wdw.dtype != torch.float32 or vecs.dtype != torch.float32:
+        raise TypeError(f"tcn_trunk: wdw and vecs must be fp32, got {wdw.dtype} and {vecs.dtype}")
+    if not h0.is_floating_point() or b < 1 or k < 1:
+        raise ValueError(f"tcn_trunk: h0 {tuple(h0.shape)} {h0.dtype}")
+    return b, k, cb, ch, n
+
+
+def tcn_trunk_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3):
+    """Plain version of :func:`tcn_trunk_cuda`, on any device: the same
+    roundings (h, skip, t1 and t2 stored bf16; statistics from the fp32
+    values; products of bf16 operands in fp32)."""
+    _, k, cb, ch, _ = _check(h0, we, wdw, wg, vecs, dils, taps)
+    inv_n = torch.tensor(1.0 / (k * ch), dtype=torch.float32, device=h0.device)
+    rows = torch.arange(k, device=h0.device)
+    h = h0.to(torch.bfloat16)
+    skip = torch.zeros_like(h)
+    for j, d in enumerate(dils):
+        v = vecs[j]
+        b_e, g1, be1, b_dw = v[0, :ch], v[1, :ch], v[2, :ch], v[3, :ch]
+        biasc, csum = v[4, : 2 * cb], v[5, : 2 * cb]
+        a1, a2 = v[6, :ch], v[7, :ch]
+        w = [wdw[j, t] for t in range(taps)]
+
+        y = h.float() @ we[j].float() + b_e
+        t1 = torch.where(y >= 0, y, a1 * y)
+        mu1, st1 = _folded_stats(t1, inv_n)
+        av1 = g1 * st1[:, None]  # [B, ch]
+        bv1 = be1 - mu1[:, None] * av1
+        wsum = w[0]
+        for t in range(1, taps):
+            wsum = wsum + w[t]
+        b_eff = bv1 * wsum + b_dw
+
+        pad = (taps - 1) * d // 2
+        t1p = F.pad(t1.to(torch.bfloat16).float(), (0, 0, pad, (taps - 1) * d - pad))
+        pre = b_eff[:, None, :]
+        for t in range(taps):
+            pre = pre + (av1 * w[t])[:, None, :] * t1p[:, t * d : t * d + k]
+        for t in range(taps):
+            off = t * d - pad
+            if off:
+                invalid = ((rows + off < 0) | (rows + off >= k)).float()
+                pre = pre - (bv1 * w[t])[:, None, :] * invalid[None, :, None]
+        t2 = torch.where(pre >= 0, pre, a2 * pre)
+        mu2, st2 = _folded_stats(t2, inv_n)
+        bias2 = biasc - (mu2 * st2)[:, None] * csum  # [B, 2cb]
+
+        rs = (t2.to(torch.bfloat16).float() @ wg[j].float()) * st2[:, None, None] + bias2[:, None, :]
+        h = (h.float() + rs[..., :cb]).to(torch.bfloat16)
+        skip = (skip.float() + rs[..., cb:]).to(torch.bfloat16)
+    return skip
+
+
+def _folded_stats(x: torch.Tensor, inv_n: torch.Tensor):
+    """Per-item one-pass gLN statistics ``(mu, 1/sigma)`` of fp32 ``x``, each ``[B]``."""
+    mu = x.sum(dim=(1, 2)) * inv_n
+    var = torch.clamp((x * x).sum(dim=(1, 2)) * inv_n - mu * mu, min=0.0)
+    return mu, 1.0 / torch.sqrt(var + _EPS)
+
+
+def tcn_trunk_cuda(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3) -> torch.Tensor:
+    """Skip-connection sum ``[B, K, cb]`` bf16 of the whole trunk.
+
+    ``h0``: ``[B, K, cb]`` (any float dtype, cast to bf16); the weight arrays
+    come from :func:`stack_tcn_weights`; ``dils`` holds one dilation per
+    block, at most 64. On a CUDA tensor ``cb`` and ``ch`` must be multiples
+    of 8 (16-byte rows for the kernel's tile loads).
+    """
+    if h0.device.type == "cpu":
+        return tcn_trunk_plain(h0, we, wdw, wg, vecs, dils=dils, taps=taps)
+    if h0.device.type != "cuda" or any(t.device != h0.device for t in (we, wdw, wg, vecs)):
+        raise ValueError(
+            f"tcn_trunk_cuda: tensors on {[str(t.device) for t in (h0, we, wdw, wg, vecs)]}"
+        )
+    b, k, cb, ch, n = _check(h0, we, wdw, wg, vecs, dils, taps)
+    if cb % 8 or ch % 8:
+        raise ValueError(f"tcn_trunk_cuda: cb={cb} and ch={ch} must be multiples of 8")
+    h = h0.to(torch.bfloat16).contiguous().clone()  # the carry, updated in place
+    skip = torch.zeros_like(h)
+    t1 = torch.empty((b, k, ch), dtype=torch.bfloat16, device=h.device)
+    t2 = torch.empty_like(t1)
+    row_tiles = math.ceil(k / _TILE_ROWS)
+    parts = row_tiles * math.ceil(ch / _TILE_COLS) + row_tiles
+    part = torch.empty((b * parts, 2), dtype=torch.float32, device=h.device)
+    we, wdw, wg, vecs = (t.contiguous() for t in (we, wdw, wg, vecs))
+    dil_array = (ctypes.c_int * n)(*(int(d) for d in dils))
+    with torch.cuda.device(h.device):
+        code = _build.library().sst_tcn_trunk(
+            h.data_ptr(), skip.data_ptr(), t1.data_ptr(), t2.data_ptr(), part.data_ptr(),
+            we.data_ptr(), wdw.data_ptr(), wg.data_ptr(), vecs.data_ptr(),
+            ctypes.addressof(dil_array), b, k, cb, ch, vecs.shape[2], taps, n,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, "tcn_trunk")
+    tcn_trunk_cuda.launches += 1
+    return skip
+
+
+tcn_trunk_cuda.launches = 0

@@ -2,10 +2,11 @@
 ``utils/config.py``).
 
 :class:`UPitTrainConfig` keeps the JAX package's field names and defaults, so
-one ``cfg.json`` configures either package. Fields whose feature the port
-does not serve yet raise ``ValueError`` when set, rather than being ignored:
-``variant`` other than ``"blstm"``, ``pack``, ``dynamic_mix``, and a mesh of
-more than one device. ``blstm_pallas_scan`` is accepted and has no effect:
+one ``cfg.json`` configures either package. ``variant`` is ``"blstm"`` (served
+and trained) or ``"tasnet"`` (served; ``cli train`` refuses it until its
+training slice). Fields whose feature the port does not serve yet raise
+``ValueError`` when set, rather than being ignored: ``variant="conv"``,
+``pack``, ``dynamic_mix``, and a mesh of more than one device. ``blstm_pallas_scan`` is accepted and has no effect:
 on a GPU the port always runs its training kernels.
 """
 
@@ -40,7 +41,7 @@ class UPitTrainConfig:
     data_root: str = "./mycode/wsj0_2mix/use_this"
     train_split: str = "tr"
     val_split: str = "cv"
-    variant: str = "blstm"  # the port serves "blstm"; "conv" and "tasnet" wait
+    variant: str = "blstm"  # "blstm" or "tasnet" in the port; "conv" waits
     batch_size: int = 2
     epochs: int = 5
     patience: int = 50
@@ -78,8 +79,8 @@ class UPitTrainConfig:
 
     def __post_init__(self) -> None:
         unserved = []
-        if self.variant != "blstm":
-            unserved.append(f"variant={self.variant!r} (only 'blstm')")
+        if self.variant not in ("blstm", "tasnet"):
+            unserved.append(f"variant={self.variant!r} (only 'blstm' and 'tasnet')")
         if self.pack:
             unserved.append("pack=true (sequence-packed training)")
         if self.dynamic_mix:

@@ -24,8 +24,11 @@ from speech_separation_tpu_torch.ops.lstm_train_cuda import (
     lstm_train_forward,
     lstm_train_forward_plain,
 )
+from speech_separation_tpu_torch.models.tasnet import ConvTasNet
+from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply
 from speech_separation_tpu_torch.ops.stft import stft
 from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
+from speech_separation_tpu_torch.ops.tcn_cuda import tcn_trunk_cuda, tcn_trunk_plain
 from speech_separation_tpu_torch.separate.pipeline import make_separate_fn
 
 pytestmark = pytest.mark.cuda
@@ -43,6 +46,12 @@ PATH_REL = 1e-4  # relative L2 of the fp32 separation output
 TRAIN_ATOL = 1e-4
 TRAIN_BF16_ATOL = 3e-2
 GRAD_REL = 1e-4  # relative L2 of bilstm_train's fp32 gradients against autograd
+# The trunk kernel against its plain version: both store h, skip, t1 and t2 in
+# bf16 at the same places; a sum taken in another order can flip one bf16
+# rounding (2^-8 relative), which later blocks carry, so the bound is 3e-2 of
+# the largest |skip| (at least 1).
+TRUNK_BF16_REL = 3e-2
+SERVE_KERNEL_DB = 30.0  # cuda_apply, kernel trunk against plain trunk, both bf16
 
 
 @pytest.fixture
@@ -188,3 +197,59 @@ def test_train_step_kernel_path_matches_plain(cuda_device):
         params[kind] = torch.cat([p.detach().flatten() for p in model.parameters()])
     np.testing.assert_allclose(losses["kernel"], losses["plain"], rtol=1e-5)
     assert ((params["kernel"] - params["plain"]).norm() / params["plain"].norm()).item() <= 1e-4
+
+
+def _trunk_inputs(batch, frames, cb, ch, dils, device, seed):
+    n = len(dils)
+    vecs = _normal((n, 8, max(ch, 2 * cb)), seed) * 0.1
+    vecs[:, 1] += 1.0  # norm1 gamma near 1
+    vecs[:, 6], vecs[:, 7] = 0.25, 0.2  # PReLU slopes
+    return (
+        _normal((batch, frames, cb), seed + 1).to(device),
+        (_normal((n, cb, ch), seed + 2) / np.sqrt(cb)).to(device, torch.bfloat16),
+        (_normal((n, 3, ch), seed + 3) / np.sqrt(3)).to(device),
+        (_normal((n, ch, 2 * cb), seed + 4) / np.sqrt(ch)).to(device, torch.bfloat16),
+        vecs.to(device),
+    )
+
+
+@pytest.mark.parametrize("frames", [130, 1100])  # ragged: no multiple of a 64-frame tile
+@pytest.mark.parametrize("cb,ch", [(32, 48), (128, 256)])
+def test_tcn_trunk_kernel_matches_plain(cuda_device, frames, cb, ch):
+    dils = (1, 2, 4, 8, 16, 32, 64, 1)
+    inputs = _trunk_inputs(2, frames, cb, ch, dils, cuda_device, seed=20)
+    before = tcn_trunk_cuda.launches
+    got = tcn_trunk_cuda(*inputs, dils=dils)
+    again = tcn_trunk_cuda(*inputs, dils=dils)
+    want = tcn_trunk_plain(*inputs, dils=dils)
+    torch.cuda.synchronize()
+    assert tcn_trunk_cuda.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (2, frames, cb)
+    assert torch.equal(got, again)  # fixed-order statistics: bit-identical reruns
+    bound = TRUNK_BF16_REL * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+def test_tcn_trunk_kernel_raises(cuda_device):
+    dils = (1, 2, 4, 8, 16, 32, 64, 1)
+    h0, we, wdw, wg, vecs = _trunk_inputs(1, 100, 32, 48, dils, cuda_device, seed=30)
+    with pytest.raises(ValueError, match="dilations"):
+        tcn_trunk_cuda(h0, we, wdw, wg, vecs, dils=dils[:-1] + (128,))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tcn_trunk_cuda(h0[..., :-4], we[:, :-4], wdw, wg[..., :-8], vecs, dils=dils)
+    with pytest.raises(ValueError, match="tensors on"):
+        tcn_trunk_cuda(h0, we.cpu(), wdw, wg, vecs, dils=dils)
+
+
+def test_cuda_apply_kernel_trunk_matches_plain_trunk(cuda_device):
+    model = ConvTasNet(enc_dim=64, bottleneck=32, hidden=48, blocks=4, repeats=2,
+                       generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    mix = (_normal((3, 8800), seed=40) * 0.3).to(cuda_device)  # K = 1100 frames
+    before = tcn_trunk_cuda.launches
+    got = cuda_apply(model, mix)
+    want = cuda_apply(model, mix, plain=True)
+    torch.cuda.synchronize()
+    assert tcn_trunk_cuda.launches == before + 1
+    assert got.shape == (3, 2, 8800) and torch.isfinite(got).all()
+    snr = 10 * torch.log10(want.square().sum() / (got - want).square().sum().clamp_min(1e-30))
+    assert snr.item() >= SERVE_KERNEL_DB

@@ -140,18 +140,27 @@ def test_port_imports_without_jax():
         "    importlib.import_module(name)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'speech_separation_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 18
+    names = set(proc.stdout.split())
+    assert len(names) >= 22
+    assert {
+        "speech_separation_tpu_torch.models.tasnet",
+        "speech_separation_tpu_torch.models.tasnet_serving",
+        "speech_separation_tpu_torch.ops.tcn_cuda",
+        "speech_separation_tpu_torch.separate.tasnet_chunked",
+    } <= names
 
 
 def test_build_command_targets_sm90a_with_every_source(tmp_path):
     names = sorted(s.name for s in _build.SOURCES)
-    assert names == ["lstm_recurrence.cu", "lstm_train_backward.cu", "stft_analysis.cu"]
+    assert names == [
+        "lstm_recurrence.cu", "lstm_train_backward.cu", "stft_analysis.cu", "tcn_trunk.cu"
+    ]
     *compiles, link = _build.nvcc_commands("nvcc", tmp_path / "lib.so")
     # one compile per source, run together, then one link of their objects
     assert all("arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd for cmd in compiles)

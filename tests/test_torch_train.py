@@ -366,7 +366,7 @@ def test_config_fields_and_defaults_match_jax(tmp_path):
 
 @pytest.mark.parametrize(
     "fields",
-    [{"pack": True}, {"dynamic_mix": True}, {"variant": "tasnet"}, {"mesh": {"data": 4}},
+    [{"pack": True}, {"dynamic_mix": True}, {"variant": "conv"}, {"mesh": {"data": 4}},
      {"mesh": {"model": 2}}],
 )
 def test_config_rejects_what_the_port_does_not_serve(tmp_path, fields):
@@ -463,7 +463,7 @@ def test_cli_train_then_separate(tmp_path, fixture_tree, capsys):
     records = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
     assert len(records) == 2 + 2 * 3 + 1 + 3 and records[-1]["step"] == 3 * latest + 3
 
-    for flags in ([], ["--bf16"]):
+    for flags in ([], ["--bf16"], ["--batch-size", "1", "--transfer-int16"]):
         out = tmp_path / f"sep{len(flags)}"
         cli.main(["separate", "--checkpoint-dir", str(ckpt), "--data-root", str(fixture_tree),
                   "--out-dir", str(out), *flags])
