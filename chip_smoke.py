@@ -46,7 +46,31 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 11. Conv-TasNet timing at ``bench.py::bench_tasnet``'s shape (64 × 8 s,
    ``default_rng(0)`` normal × 0.1), win 16 and 32: the module in fp32 and
    bf16 and ``cuda_apply`` (kernel and plain trunk) in ×-real-time, and the
-   trunk kernel alone against its plain version.
+   trunk kernel alone against its plain version;
+12. the Conv-TasNet training kernels against their plain versions at full
+   width (B=4, cb 128, ch 256, 21 blocks) at K=4000 frames
+   (``bench_tasnet_train``'s 4 s at win 16) and a ragged K=4003: the
+   forward's skip sum (≡ the serving kernel's, bit for bit), saved h and
+   statistics; the backward's dh0 and four canonical gradients; bit-identical
+   reruns; and the plain passes in fp32 storage against autograd through
+   ``trunk_reference``;
+13. Conv-TasNet training path — ``cli train`` with ``variant="tasnet"``,
+   ``tasnet_pallas_trunk=true`` for 2 epochs on a synthetic fixture (tr 8,
+   cv 4) at full width, then ``cli separate --kernel pallas`` from its
+   checkpoint, counting the three trunk kernels' launches; on one batch the
+   kernel path's loss and gradients against the plain trunk's and the bf16
+   module's; 8 steps on one fixed batch must lower the loss;
+14. Conv-TasNet training timing at ``bench_tasnet_train``'s shape (16 × 4 s,
+   win 16): the train step of the kernel path, the plain-trunk path and the
+   module's autograd in fp32 and bf16, in audio-seconds trained per second,
+   and each training kernel alone against its plain version.
+
+Every kernel's entry in the kernels line carries its bound: the larger of its
+compulsory bytes (each input read once, each output written once) over 3.35
+TB/s and its products' operations over the peak for their type (989 TFLOP/s
+bf16 on the tensor cores, 67 TFLOP/s fp32), NVIDIA's H100 SXM figures; and the
+time of one PyTorch call computing the same function where there is one
+(``torch.stft``, cuDNN ``nn.LSTM``), used nowhere in the port.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -91,6 +115,33 @@ SERVE_DB = 22.0  # cuda_apply (bf16) against the fp32 module: the JAX bound
 # the trunk's summation order differs, so tighter than against fp32
 TRUNK_PATH_DB = 30.0
 FUSED_DB = 90.0  # the fp32 module against fused_apply fp32: the same math
+TASNET_TRAIN_BATCH, TASNET_TRAIN_SECONDS = 16, 4.0  # bench.py::bench_tasnet_train
+# The training backward kernel against its plain version on the same residuals:
+# both round seven slabs to bf16 and sum over (K, ch) in another order, so a
+# flipped rounding moves a gradient by a bf16 ulp of its summands (2^-8);
+# relative L2 of each gradient.
+TRAIN_TRUNK_GRAD_REL = 3e-2
+TRAIN_TRUNK_STATS_REL = 1e-2  # the saved statistics, from t1 and t2 that differ by such flips
+# The plain passes in fp32 storage against autograd through trunk_reference in
+# float64: the same function, derived by hand (the CPU tests measure ~125 dB
+# at 6 narrow blocks). At full width fp32 rounding alone moves the gradients
+# by ~1e-3 (21 blocks, gLN groups of 1M elements): the bound is twice the fp32
+# trunk_reference's own distance from float64, at least 1e-5.
+TRAIN_TRUNK_FP32_FACTOR = 2.0
+# One batch: the kernel path's loss against the plain trunk's (bf16 both;
+# only the trunk's summation order differs) and the bf16 module's (roundings
+# at other places); gradients as SNR over all parameters, bf16 pairs
+TASNET_STEP_LOSS_REL = {"plain trunk": 1e-2, "module bf16": 5e-2}
+TASNET_STEP_GRAD_DB = {"plain trunk": 20.0, "module bf16": 10.0}
+# NVIDIA H100 SXM: HBM bytes/s, dense bf16 tensor-core and fp32 FLOP/s
+HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+
+
+def bound(nbytes: float, flops: float, peak: float) -> dict:
+    """The least time for ``nbytes`` of compulsory traffic and ``flops`` at ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase(name: str, message: str) -> None:
@@ -262,8 +313,11 @@ def main() -> int:
     sig = mix
     stft_ms = cuda_ms(lambda: stft_cuda(sig), iters=20)
     stft_plain_ms = cuda_ms(lambda: stft(sig), iters=20)
+    window = torch.blackman_window(256, periodic=False, device=device)
+    stft_lib_ms = cuda_ms(lambda: torch.stft(sig, 256, 128, window=window, center=True,
+                                             pad_mode="constant", return_complex=True), iters=20)
     phase("timing", f"stft_analysis ({BENCH_BATCH}, {samples}) fp32: kernel {stft_ms:.3f} ms, "
-          f"plain {stft_plain_ms:.3f} ms")
+          f"plain {stft_plain_ms:.3f} ms, torch.stft (cuFFT) {stft_lib_ms:.3f} ms")
     lstm_ms = {}
     xw = torch.randn(2, BENCH_BATCH, frames, 4 * hidden, generator=gen, device=device)
     with torch.inference_mode():
@@ -275,11 +329,26 @@ def main() -> int:
             )
             phase("timing", f"lstm_recurrence {tag} D=2 B={BENCH_BATCH} T={frames} H={hidden}: "
                   f"kernel {lstm_ms[tag][0]:.2f} ms, plain {lstm_ms[tag][1]:.2f} ms")
+        # cuDNN's bidirectional layer at the same shape, fp32; it also computes
+        # the input projection x @ W (input 2H, the model's layers 2 and 3),
+        # which the kernel's caller leaves to cuBLAS
+        cudnn = torch.nn.LSTM(2 * hidden, hidden, batch_first=True, bidirectional=True).to(device)
+        x_in = torch.randn(BENCH_BATCH, frames, 2 * hidden, generator=gen, device=device)
+        lstm_lib_ms = cuda_ms(lambda: cudnn(x_in), iters=5)
+        del cudnn, x_in
+    phase("timing", f"cuDNN nn.LSTM fp32 bidirectional B={BENCH_BATCH} T={frames} H={hidden} "
+          f"(input 2H, projection included): {lstm_lib_ms:.2f} ms")
 
     train = training_phases(device, model, gen)
     del model
     torch.cuda.empty_cache()
     tasnet = tasnet_phases(device, gen)
+    torch.cuda.empty_cache()
+    tasnet_train = tasnet_training_phases(device, gen)
+
+    d, h4 = 2, 4 * hidden
+    lstm_bytes = 4 * (d * BENCH_BATCH * frames * h4 + d * hidden * h4 + BENCH_BATCH * frames * d * hidden)
+    stft_frames = stft_frame_count(samples, 256, 128)
 
     kernels = [
         {
@@ -291,6 +360,9 @@ def main() -> int:
             "max_abs_err": stft_err,
             "ms": stft_ms,
             "plain_ms": stft_plain_ms,
+            **bound(4 * BENCH_BATCH * (samples + stft_frames * 258),
+                    2 * BENCH_BATCH * stft_frames * 256 * 258, FP32_FLOPS),
+            "library_ms": stft_lib_ms,
         },
         {
             "name": "lstm_recurrence",
@@ -301,12 +373,15 @@ def main() -> int:
             "max_abs_err": lstm_err,
             "ms": lstm_ms["fp32"][0],
             "plain_ms": lstm_ms["fp32"][1],
+            **bound(lstm_bytes, 2 * d * BENCH_BATCH * frames * hidden * h4, FP32_FLOPS),
+            "library_ms": lstm_lib_ms,
             "max_abs_err_bf16": lstm_err_bf16,
             "ms_bf16": lstm_ms["bf16"][0],
             "plain_ms_bf16": lstm_ms["bf16"][1],
         },
         *train,
         tasnet,
+        *tasnet_train,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
@@ -334,7 +409,6 @@ def tasnet_phases(device, gen) -> dict:
     from speech_separation_tpu_torch.data.audio_io import read_wav
     from speech_separation_tpu_torch.data.datasets import WaveformLoader
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
-    from speech_separation_tpu_torch.models.tasnet import ConvTasNet
     from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply, fused_apply
     from speech_separation_tpu_torch.ops.tcn_cuda import (
         stack_tcn_weights,
@@ -343,21 +417,10 @@ def tasnet_phases(device, gen) -> dict:
     )
     from speech_separation_tpu_torch.utils import UPitTrainConfig, save_config
 
-    def full_width(win: int = 16, causal: bool = False) -> ConvTasNet:
-        m = ConvTasNet(win=win, causal=causal, generator=torch.Generator().manual_seed(0))
-        pert = torch.Generator().manual_seed(1)
-        scale = {"gamma": 0.2, "beta": 0.1, "bias": 0.1, "alpha": 0.05}
-        with torch.no_grad():  # init leaves gamma 1, beta and biases 0: the folds need more
-            for name, p in m.named_parameters():
-                s = scale.get(name.rsplit(".", 1)[-1])
-                if s:
-                    p += s * torch.randn(p.shape, generator=pert)
-        return m.to(device).eval()
-
     dils = tuple(2**x for _ in range(3) for x in range(7))
 
     # 9. the trunk kernel against its plain version at full width
-    model = full_width()
+    model = full_width_tasnet(device)
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != 2_226_092:
         raise AssertionError(f"ConvTasNet has {n_params} params, expected 2,226,092")
@@ -386,7 +449,7 @@ def tasnet_phases(device, gen) -> dict:
         tmp = pathlib.Path(tmp)
         root = make_synthetic_fixture(tmp / "fixture", utterances_per_split={"tr": 1, "cv": 1, "tt": 8})
         for name, causal in (("ckpt", False), ("ckpt_causal", True)):
-            m = model if not causal else full_width(causal=True)
+            m = model if not causal else full_width_tasnet(device, causal=True)
             state = train_mod.TrainState.create(m, train_mod.adam(), seed=0)
             train_mod.CheckpointManager(tmp / name).save_if_best(0, state, 0.0)
             save_config(UPitTrainConfig(variant="tasnet", seed=0, batch_size=4, tasnet_causal=causal),
@@ -453,7 +516,7 @@ def tasnet_phases(device, gen) -> dict:
     audio_s = TASNET_BATCH * BENCH_SECONDS
     trunk_ms = {}
     for win in (16, 32):
-        m = full_width(win)
+        m = full_width_tasnet(device, win)
         m16 = copy.deepcopy(m).to(torch.bfloat16)
         paths = {
             "module fp32": lambda: m(mix),
@@ -497,9 +560,301 @@ def tasnet_phases(device, gen) -> dict:
         "max_abs_err": trunk_err,
         "ms": trunk_ms[16][0],
         "plain_ms": trunk_ms[16][1],
+        **trunk_bound(TASNET_BATCH, samples // 8),
+        "library_ms": None,
         "ms_win32": trunk_ms[32][0],
         "plain_ms_win32": trunk_ms[32][1],
     }
+
+
+TRUNK_CB, TRUNK_CH, TRUNK_BLOCKS, TRUNK_TAPS = 128, 256, 21, 3
+
+
+def trunk_bound(batch: int, frames: int, train: str = "") -> dict:
+    """Bound of the trunk kernels at (batch, frames), full width: bf16 products
+    (the depthwise taps' fp32 work is < 1% of it), compulsory bytes h0 and the
+    weights in, skip out; ``train="forward"`` adds the saved h and statistics,
+    ``"backward"`` reads those and dskip (fp32) and writes dh0 (fp32) and the
+    gradients, with five products a block (14 B K cb ch)."""
+    cb, ch, n = TRUNK_CB, TRUNK_CH, TRUNK_BLOCKS
+    vdim = max(ch, 2 * cb)
+    bk = batch * frames
+    weights = n * (2 * (cb * ch + ch * 2 * cb) + 4 * (TRUNK_TAPS * ch + 10 * vdim))
+    if train == "backward":
+        grads = 4 * n * (cb * ch + TRUNK_TAPS * ch + ch * 2 * cb + 10 * vdim)
+        nbytes = 4 * bk * cb + 2 * n * bk * cb + 16 * n * batch + weights + 4 * bk * cb + grads
+        return bound(nbytes, 14 * n * bk * cb * ch, BF16_FLOPS)
+    nbytes = 2 * bk * cb + weights + 2 * bk * cb
+    if train == "forward":
+        nbytes += 2 * n * bk * cb + 16 * n * batch
+    return bound(nbytes, 2 * n * bk * (cb * ch + ch * 2 * cb), BF16_FLOPS)
+
+
+def full_width_tasnet(device, win: int = 16, causal: bool = False):
+    """The full-width ConvTasNet from seed 0, norms, biases and slopes perturbed
+    from seed 1 (init leaves gamma 1, beta and biases 0: the folds need more)."""
+    import torch
+
+    from speech_separation_tpu_torch.models.tasnet import ConvTasNet
+
+    m = ConvTasNet(win=win, causal=causal, generator=torch.Generator().manual_seed(0))
+    pert = torch.Generator().manual_seed(1)
+    scale = {"gamma": 0.2, "beta": 0.1, "bias": 0.1, "alpha": 0.05}
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            sc = scale.get(name.rsplit(".", 1)[-1])
+            if sc:
+                p += sc * torch.randn(p.shape, generator=pert)
+    return m.to(device).eval()
+
+
+def rel_l2(got, want) -> float:
+    return ((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30)).item()
+
+
+def tasnet_training_phases(device, gen) -> list[dict]:
+    """Phases 12 to 14; returns the two training kernels' entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from speech_separation_tpu_torch import cli
+    from speech_separation_tpu_torch import train as train_mod
+    from speech_separation_tpu_torch.data.datasets import WaveformLoader
+    from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.losses import pit_si_sdr_loss
+    from speech_separation_tpu_torch.models.tasnet_serving import train_apply
+    from speech_separation_tpu_torch.ops.tcn_cuda import (
+        fold_canonical,
+        stack_canonical,
+        tcn_trunk_cuda,
+        trunk_reference,
+    )
+    from speech_separation_tpu_torch.ops.tcn_train_cuda import (
+        tcn_train_backward,
+        tcn_train_backward_plain,
+        tcn_train_forward,
+        tcn_train_forward_plain,
+        tcn_trunk_train,
+    )
+
+    dils = tuple(2**x for _ in range(3) for x in range(7))
+    model = full_width_tasnet(device)
+    canon = stack_canonical(dict(model.state_dict()), blocks=7, repeats=3)
+    folded = fold_canonical(*canon)
+
+    # 12. the training kernels against their plain versions at full width
+    errs = {"forward": 0.0, "backward": 0.0}
+    scale = {"forward": 0.0, "backward": 0.0}  # the largest |value| the errors are of
+    grad_rel = 0.0
+    for frames in (4000, 4003):
+        h0 = torch.randn(4, frames, TRUNK_CB, generator=gen, device=device)
+        dskip = torch.randn(4, frames, TRUNK_CB, generator=gen, device=device)
+        skip, hb, st = tcn_train_forward(h0, *folded, dils=dils)
+        want = tcn_train_forward_plain(h0, *folded, dils=dils)
+        serving = tcn_trunk_cuda(h0, *folded, dils=dils)
+        grads = tcn_train_backward(dskip, hb, st, *canon, dils=dils)
+        again = tcn_train_backward(dskip, hb, st, *canon, dils=dils)
+        plain = tcn_train_backward_plain(dskip, hb, st, *canon, dils=dils)
+        torch.cuda.synchronize()
+        if not torch.equal(skip, serving):
+            raise AssertionError(f"tcn_train_forward K={frames}: skip differs from tcn_trunk")
+        fwd = {}
+        for what, got, ref in (("skip", skip, want[0]), ("h", hb, want[1])):
+            peak = ref.float().abs().max().item()
+            fwd[what] = ((got.float() - ref.float()).abs().max().item(), TRUNK_BF16_TOL * max(1.0, peak))
+        fwd["stats"] = (rel_l2(st, want[2]), TRAIN_TRUNK_STATS_REL)
+        bwd = {name: (rel_l2(g, r), TRAIN_TRUNK_GRAD_REL)
+               for name, g, r in zip(("dh0", "dwe", "dwdw", "dwcat", "dvec"), grads, plain)}
+        bad = {k: v for k, v in {**fwd, **bwd}.items() if not v[0] <= v[1]}
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        if bad or not same:
+            raise AssertionError(f"training trunk K={frames}: out of bounds {bad}, backward rerun "
+                                 f"bit-identical {same}")
+        errs["forward"] = max(errs["forward"], fwd["skip"][0])
+        errs["backward"] = max(errs["backward"], max_err(grads, plain))
+        scale["forward"] = max(scale["forward"], want[0].float().abs().max().item())
+        scale["backward"] = max(scale["backward"], max(r.abs().max().item() for r in plain))
+        grad_rel = max(grad_rel, max(v[0] for v in bwd.values()))
+        phase("tasnet-train-kernels", f"B=4 K={frames} cb=128 ch=256 21 blocks bf16: forward skip "
+              f"≡ tcn_trunk bit for bit; vs plain: " + "; ".join(
+                  f"{k} {v[0]:.3e} <= {v[1]:.3e}" for k, v in fwd.items())
+              + " (max abs, 3e-2 x max(1, peak); stats rel L2); backward rel L2: " + "; ".join(
+                  f"{k} {v[0]:.2e}" for k, v in bwd.items())
+              + f" <= {TRAIN_TRUNK_GRAD_REL}; rerun bit-identical")
+        del skip, hb, st, want, serving, grads, again, plain
+
+    h0 = torch.randn(4, 4003, TRUNK_CB, generator=gen, device=device)
+    probe = torch.randn(4, 4003, TRUNK_CB, generator=gen, device=device)
+    runs = {}
+    for kind in ("float64", "reference", "fp32", "kernel"):
+        dtype = torch.float64 if kind == "float64" else torch.float32
+        params = [t.detach().to(dtype).clone().requires_grad_() for t in (h0, *canon)]
+        if kind in ("float64", "reference"):
+            out = trunk_reference(*params, dils=dils)
+        else:
+            out = tcn_trunk_train(*params, dils=dils, plain=kind == "fp32",
+                                  storage=torch.float32 if kind == "fp32" else torch.bfloat16)
+        (out.to(dtype) * probe.to(dtype)).sum().backward()
+        # the PReLU rows' lanes summed, as stack_canonical sums them
+        g = [p.grad for p in params]
+        g[4] = torch.cat([g[4][:, :8].flatten(), g[4][:, 8:].sum(-1).flatten()])
+        runs[kind] = g
+    names = ("dh0", "dwe", "dwdw", "dwcat", "dvec")
+    oracle = runs.pop("float64")
+    rels = {kind: [rel_l2(a, b) for a, b in zip(g, oracle)] for kind, g in runs.items()}
+    bounds = [max(1e-5, TRAIN_TRUNK_FP32_FACTOR * r) for r in rels["reference"]]
+    if not all(r <= b for r, b in zip(rels["fp32"], bounds)):
+        raise AssertionError(f"fp32 plain trunk gradients against float64 autograd: rel L2 "
+                             f"{rels['fp32']}, bounds {bounds}")
+    phase("tasnet-train-kernels", "B=4 K=4003 against autograd through trunk_reference in float64,"
+          " rel L2 of " + ", ".join(names) + ": plain passes in fp32 storage " + ", ".join(
+              f"{r:.2e} <= {b:.2e}" for r, b in zip(rels["fp32"], bounds))
+          + "; trunk_reference fp32 " + ", ".join(f"{r:.2e}" for r in rels["reference"])
+          + "; kernels (bf16) " + ", ".join(f"{r:.2e}" for r in rels["kernel"]))
+    del runs, h0, probe
+
+    # 13. the training path through the port's CLI at full width
+    counters = (tcn_train_forward, tcn_train_backward, tcn_trunk_cuda)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tasnet_train_") as tmp:
+        tmp = pathlib.Path(tmp)
+        root = make_synthetic_fixture(tmp / "fixture", utterances_per_split={"tr": 8, "cv": 4, "tt": 4})
+        cfg = tmp / "cfg.json"
+        cfg.write_text(json.dumps({"variant": "tasnet", "tasnet_pallas_trunk": True, "seed": 0,
+                                   "batch_size": 4, "learning_rate": 1e-3}))
+        ckpt, out = tmp / "ckpt", tmp / "sep"
+        for counter in counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["train", "--config", str(cfg), "--data-root", str(root), "--epochs", "2",
+                  "--checkpoint-dir", str(ckpt), "--device", "cuda"])
+        cli.main(["separate", "--checkpoint-dir", str(ckpt), "--data-root", str(root),
+                  "--out-dir", str(out), "--kernel", "pallas", "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel of the Conv-TasNet training path never launched: {launches}")
+        records = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in records if "loss" in r]
+        vals = [r["val_loss"] for r in records if "val_loss" in r]
+        if len(losses) != 4 or len(vals) != 2 or not all(map(math.isfinite, losses + vals)):
+            raise AssertionError(f"cli train tasnet: step losses {losses}, val losses {vals}")
+        if not list(ckpt.glob("ckpt_*.pt")) or len(list(out.glob("*.wav"))) != 8:
+            raise AssertionError(f"cli train/separate tasnet: {sorted(ckpt.iterdir())}, "
+                                 f"{len(list(out.glob('*.wav')))} wavs for 4 mixtures")
+        phase("tasnet-train", f"cli train tasnet (ConvTasNet 2,226,092 params, tasnet_pallas_trunk) "
+              f"2 epochs of tr 8 (batch 4) + cv 4: step losses "
+              f"{', '.join(f'{v:.2f}' for v in losses)}; val {', '.join(f'{v:.2f}' for v in vals)}; "
+              f"then cli separate --kernel pallas (8 wavs), {seconds:.1f} s; launches {launches}")
+
+        b = next(iter(WaveformLoader(root / "tr", batch_size=4)))
+        arrays = tuple(torch.from_numpy(a).to(device) for a in (b.mix, b.sources, b.sample_lengths))
+
+    def loss_and_grads(kind):
+        net = full_width_tasnet(device)
+        if kind == "module bf16":
+            cast = {n: p.to(torch.bfloat16) for n, p in net.named_parameters()}
+            est = torch.func.functional_call(net, cast, (arrays[0],))
+        else:
+            est = train_apply(net, arrays[0], plain=kind == "plain trunk")
+        loss = pit_si_sdr_loss(est.float(), arrays[1], arrays[2])
+        loss.backward()
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).flatten()
+                          for p in net.parameters()])
+        return loss.item(), flat
+
+    k_loss, k_grad = loss_and_grads("kernel")
+    parts = []
+    for kind in ("plain trunk", "module bf16"):
+        loss, grad = loss_and_grads(kind)
+        rel, db = abs(k_loss - loss) / abs(loss), snr_db(grad, k_grad)
+        if not (rel <= TASNET_STEP_LOSS_REL[kind] and db >= TASNET_STEP_GRAD_DB[kind]):
+            raise AssertionError(f"kernel path vs {kind}: loss {k_loss} vs {loss} (rel {rel}), "
+                                 f"gradient SNR {db} dB")
+        parts.append(f"vs {kind} loss {loss:.4f} (rel {rel:.1e} <= {TASNET_STEP_LOSS_REL[kind]}), "
+                     f"gradients {db:.1f} dB >= {TASNET_STEP_GRAD_DB[kind]}")
+    phase("tasnet-train", f"one batch {tuple(arrays[0].shape)}, kernel path loss {k_loss:.4f}: "
+          + "; ".join(parts))
+
+    net = full_width_tasnet(device)
+    state = train_mod.TrainState.create(net, train_mod.adam(1e-3), seed=0)
+    ts, _ = train_mod.make_time_domain_steps(net, compute_dtype=torch.bfloat16, pallas_trunk=True)
+    fixed = [ts(state, *arrays)[1].item() for _ in range(8)]
+    if not (all(map(math.isfinite, fixed)) and fixed[-1] < fixed[0]):
+        raise AssertionError(f"8 kernel-path steps on one batch did not lower the loss: {fixed}")
+    phase("tasnet-train", f"8 kernel-path steps (adam 1e-3) on one fixed batch: loss "
+          f"{fixed[0]:.2f} -> {fixed[-1]:.2f}")
+    del net, state, ts
+
+    # 14. training timing at bench_tasnet_train's shape
+    samples = int(TASNET_TRAIN_SECONDS * SAMPLE_RATE)
+    src = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (TASNET_TRAIN_BATCH, 2, samples)).astype(np.float32) * 0.1).to(device)
+    batch = (src.sum(1), src, torch.full((TASNET_TRAIN_BATCH,), samples, dtype=torch.int32,
+                                         device=device))
+    audio_s = TASNET_TRAIN_BATCH * TASNET_TRAIN_SECONDS
+    settings = {"kernel path": dict(compute_dtype=torch.bfloat16, pallas_trunk=True),
+                "plain-trunk path": dict(compute_dtype=torch.bfloat16, pallas_trunk=True, plain=True),
+                "module bf16": dict(compute_dtype=torch.bfloat16),
+                "module fp32": dict()}
+    step_ms = {}
+    for order in (list(settings), list(reversed(settings))):
+        for what in order:
+            net = full_width_tasnet(device)
+            state = train_mod.TrainState.create(net, train_mod.adam(1e-3), seed=0)
+            ts, _ = train_mod.make_time_domain_steps(net, **settings[what])
+            step_ms.setdefault(what, []).append(cuda_ms(lambda: ts(state, *batch), iters=3))
+            del net, state, ts
+    for what, vals in step_ms.items():
+        ms = min(vals)
+        phase("tasnet-train-timing", f"train step {what}, {TASNET_TRAIN_BATCH} x "
+              f"{TASNET_TRAIN_SECONDS:.0f} s: {ms:.1f} ms/step = {audio_s / (ms / 1e3):,.1f} "
+              f"audio-s trained per s (runs {', '.join(f'{v:.1f}' for v in vals)} ms)")
+
+    k = samples // 8
+    h0 = torch.randn(TASNET_TRAIN_BATCH, k, TRUNK_CB, generator=gen, device=device)
+    dskip = torch.randn(TASNET_TRAIN_BATCH, k, TRUNK_CB, generator=gen, device=device)
+    _, hb, st = tcn_train_forward(h0, *folded, dils=dils)
+    fns = {
+        "forward": (lambda: tcn_train_forward(h0, *folded, dils=dils),
+                    lambda: tcn_train_forward_plain(h0, *folded, dils=dils)),
+        "backward": (lambda: tcn_train_backward(dskip, hb, st, *canon, dils=dils),
+                     lambda: tcn_train_backward_plain(dskip, hb, st, *canon, dils=dils)),
+    }
+    kernel_ms = {}
+    for which, (kernel_fn, plain_fn) in fns.items():
+        runs = {"plain": [], "kernel": []}
+        for kind in ("plain", "kernel", "kernel", "plain"):
+            runs[kind].append(cuda_ms(kernel_fn if kind == "kernel" else plain_fn, iters=3))
+        kernel_ms[which] = (min(runs["kernel"]), min(runs["plain"]))
+        b_ = trunk_bound(TASNET_TRAIN_BATCH, k, which)
+        phase("tasnet-train-timing", f"tcn_train_{which} B={TASNET_TRAIN_BATCH} K={k}: kernel "
+              f"{kernel_ms[which][0]:.2f} ms (bound {b_['bound_ms']:.3f} ms by {b_['bound_by']}, "
+              f"{100 * b_['bound_ms'] / kernel_ms[which][0]:.1f}%), plain {kernel_ms[which][1]:.2f} ms "
+              f"(runs kernel {', '.join(f'{v:.2f}' for v in runs['kernel'])}; plain "
+              f"{', '.join(f'{v:.2f}' for v in runs['plain'])})")
+    del model, canon, folded, h0, dskip, hb, st
+    torch.cuda.empty_cache()
+
+    return [
+        {
+            "name": f"tcn_train_{which}",
+            "route": "cuda",
+            "source": "speech_separation_tpu_torch/csrc/"
+                      + ("tcn_trunk.cu" if which == "forward" else "tcn_train_backward.cu"),
+            "replaces": f"speech_separation_tpu/ops/tcn_train_pallas.py:{line}",
+            "launches": launches[counter.__name__],
+            "max_abs_err": errs[which],
+            "ms": kernel_ms[which][0],
+            "plain_ms": kernel_ms[which][1],
+            **trunk_bound(TASNET_TRAIN_BATCH, k, which),
+            "library_ms": None,
+            "max_abs_of_plain": scale[which],
+            **({"max_grad_rel_l2": grad_rel} if which == "backward" else {}),
+        }
+        for which, counter, line in (("forward", tcn_train_forward, 592),
+                                     ("backward", tcn_train_backward, 643))
+    ]
 
 
 def max_err(got, want) -> float:
@@ -689,6 +1044,32 @@ def training_phases(device, model, gen) -> list[dict]:
                 phase("train-timing", f"lstm_train_{which} {tag} D=2 B={TRAIN_BATCH} T={frames} "
                       f"H={hidden}: kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
 
+    # cuDNN's bidirectional layer in training mode at the same shape, fp32: its
+    # forward (keeping what its backward needs) and its backward; both also
+    # cover the input projection, which the kernels' callers leave to cuBLAS
+    cudnn = torch.nn.LSTM(2 * hidden, hidden, batch_first=True, bidirectional=True).to(device)
+    x_in = torch.randn(TRAIN_BATCH, frames, 2 * hidden, generator=gen, device=device,
+                       requires_grad=True)
+    lib_fwd_ms = cuda_ms(lambda: cudnn(x_in), iters=5)
+    y_out = cudnn(x_in)[0]
+    dy_out = torch.randn_like(y_out)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.backward(y_out, dy_out, retain_graph=True), iters=5)
+    del cudnn, x_in, y_out, dy_out
+    phase("train-timing", f"cuDNN nn.LSTM fp32 bidirectional training B={TRAIN_BATCH} T={frames} "
+          f"H={hidden} (input 2H, projection included): forward {lib_fwd_ms:.2f} ms, backward "
+          f"{lib_bwd_ms:.2f} ms")
+    d, h4 = 2, 4 * hidden
+    gates_bytes = 4 * d * TRAIN_BATCH * frames * h4
+    c_bytes = 4 * d * TRAIN_BATCH * frames * hidden
+    u_bytes = 4 * d * hidden * h4
+    flops = 2 * d * TRAIN_BATCH * frames * hidden * h4
+    bounds = {  # xw, U in; h, gates, c out / gates, c, dy, U in; dgates out
+        "forward": bound(gates_bytes + u_bytes + c_bytes + gates_bytes + c_bytes, flops, FP32_FLOPS),
+        "backward": bound(gates_bytes + c_bytes + c_bytes + u_bytes + gates_bytes, flops,
+                          FP32_FLOPS),
+    }
+    library = {"forward": lib_fwd_ms, "backward": lib_bwd_ms}
+
     entries = []
     for which, counter, line in (("forward", lstm_train_forward, 169),
                                  ("backward", lstm_train_backward, 211)):
@@ -703,6 +1084,8 @@ def training_phases(device, model, gen) -> list[dict]:
             "max_abs_err": errs["fp32"][i],
             "ms": kernel_ms["fp32"][which][0],
             "plain_ms": kernel_ms["fp32"][which][1],
+            **bounds[which],
+            "library_ms": library[which],
             "max_abs_err_keep": errs["fp32+keep"][i],
             "max_abs_err_bf16": errs["bf16"][i],
             "max_abs_err_bf16_keep": errs["bf16+keep"][i],

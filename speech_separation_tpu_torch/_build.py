@@ -3,8 +3,9 @@
 The kernels are compiled with ``nvcc`` into one shared library with a plain C
 interface, at the first CUDA call, and loaded with :mod:`ctypes`: one ``nvcc``
 per source, all started together, then one link. The library name carries a
-hash of the sources and flags, so a stale build is never loaded. Builds go to
-``.kernel_build/`` inside the package, which git ignores.
+hash of the sources, their headers (``csrc/*.cuh``) and the flags, so a
+stale build is never loaded. Builds go to ``.kernel_build/`` inside the
+package, which git ignores.
 
 Every C entry returns ``cudaGetLastError()`` after its launches; :func:`check`
 raises on a non-zero code. A launch that is refused (too many threads, too
@@ -23,10 +24,11 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "find_nvcc", "nvcc_commands", "library", "check"]
+__all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "BUILD_DIR", "find_nvcc", "nvcc_commands", "library", "check"]
 
 _PACKAGE = pathlib.Path(__file__).resolve().parent
 SOURCES = tuple(sorted((_PACKAGE / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PACKAGE / "csrc").glob("*.cuh")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -49,6 +51,17 @@ _SIGNATURES = {
     # h, skip, t1, t2, part, we, wdw, wg, vecs, dils (host int array), batch,
     # frames, cb, ch, vdim, taps, blocks, stream
     "sst_tcn_trunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # sst_tcn_trunk's arguments with hb, st after dils
+    "sst_tcn_trunk_train": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # hb, st, dskip, dh, we, wdw, wcat, vecs, dils (host int array), dwe, dwdw,
+    # dwcat, dvec, scratch16, scratch32, batch, frames, cb, ch, vdim, taps,
+    # blocks, stream
+    "sst_tcn_trunk_backward": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
 }
 
 _lock = threading.Lock()
@@ -81,7 +94,7 @@ def nvcc_commands(nvcc: str, output: str | os.PathLike) -> list[list[str]]:
 
 def _library_path() -> pathlib.Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libsst_kernels_{digest.hexdigest()[:16]}.so"

@@ -1,22 +1,28 @@
 """Command line of the PyTorch port (counterpart of ``cli.py``).
 
     python -m speech_separation_tpu_torch.cli train --workload upit \\
-        --config cfg.json --data-root D --epochs N --checkpoint-dir C [--resume]
+        --config cfg.json --data-root D --epochs N --checkpoint-dir C [--resume] \\
+        [--device {cuda,cpu}]
     python -m speech_separation_tpu_torch.cli separate --checkpoint-dir C \\
         --data-root D --split tt --out-dir O [--bf16] [--batch-size N] \\
         [--kernel {xla,pallas}] [--pad-quantum-seconds S] \\
-        [--chunk-seconds S --chunk-overlap-seconds S] [--transfer-int16]
+        [--chunk-seconds S --chunk-overlap-seconds S] [--transfer-int16] \\
+        [--device {cuda,cpu}]
 
-``train`` trains the uPIT BLSTM separator from raw waveforms (the ``blstm``
-variant of the JAX ``train``), writing ``train_config.json``,
-``metrics.jsonl`` and the best checkpoints to the checkpoint directory.
-``separate`` loads the best checkpoint: a ``blstm`` checkpoint goes to
-``separate_directory``; a ``tasnet`` (Conv-TasNet) checkpoint to the
-time-domain path, whole utterances or overlapped chunks, with ``--kernel
-pallas`` running the TCN trunk in the ``tcn_trunk`` CUDA kernel (bf16; the
-JAX flag's name) and ``--kernel xla`` the module's own forward. Both run on
-the GPU when there is one, else on the CPU. The other subcommands and
-options of the JAX CLI wait for later slices.
+``train`` trains the config's ``variant`` from raw waveforms, writing
+``train_config.json``, ``metrics.jsonl`` and the best checkpoints to the
+checkpoint directory: the uPIT BLSTM (``blstm``) on the PIT loss of its
+masks, or Conv-TasNet (``tasnet``) wave to wave on the negative SI-SDR, with
+``tasnet_pallas_trunk`` running the TCN trunk's forward and backward in the
+training CUDA kernels (bf16). ``separate`` loads the best checkpoint: a
+``blstm`` checkpoint goes to ``separate_directory``; a ``tasnet`` checkpoint
+to the time-domain path, whole utterances or overlapped chunks, with
+``--kernel pallas`` running the TCN trunk in the ``tcn_trunk`` CUDA kernel
+(bf16; the JAX flag's name) and ``--kernel xla`` the module's own forward.
+Both run on the GPU (``--device cuda``, the default), and exit with an error
+where there is none; ``--device cpu`` runs them on the CPU, where every
+kernel takes its plain version. The other subcommands and options of the JAX
+CLI wait for later slices.
 """
 
 from __future__ import annotations
@@ -30,8 +36,14 @@ import torch
 __all__ = ["main"]
 
 
-def _device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def _device(name: str) -> torch.device:
+    """The device ``--device`` names; exits when it is ``cuda`` and there is no GPU."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "error: --device cuda (the default) but torch.cuda.is_available() is false; "
+            "pass --device cpu to run on the CPU"
+        )
+    return torch.device(name)
 
 
 def _build_model(cfg, device: torch.device):
@@ -62,6 +74,8 @@ def _build_model(cfg, device: torch.device):
 
 
 def _optimizer(cfg, steps_per_epoch: int):
+    """The JAX CLI's choice: a cosine schedule when asked for, else plain Adam
+    for Conv-TasNet and the staircase decay for the BLSTM."""
     from . import train
 
     if cfg.lr_schedule == "cosine":
@@ -71,6 +85,8 @@ def _optimizer(cfg, steps_per_epoch: int):
             warmup_steps=cfg.lr_warmup_steps,
             grad_clip_norm=cfg.grad_clip_norm,
         )
+    if cfg.variant == "tasnet":
+        return train.adam(cfg.learning_rate, grad_clip_norm=cfg.grad_clip_norm)
     return train.exponential_decay_adam(
         cfg.learning_rate, cfg.lr_decay_steps, cfg.lr_decay_rate,
         grad_clip_norm=cfg.grad_clip_norm,
@@ -87,20 +103,38 @@ def cmd_train(args) -> None:
         args.config,
         dict(data_root=args.data_root, epochs=args.epochs, checkpoint_dir=args.checkpoint_dir),
     )
-    if cfg.variant != "blstm":
+    if cfg.variant == "tasnet" and cfg.tasnet_causal and cfg.tasnet_pallas_trunk:
         raise SystemExit(
-            f"error: the PyTorch port trains only variant 'blstm' so far; "
-            f"variant {cfg.variant!r} is served (cli separate), not trained"
+            "error: tasnet_pallas_trunk runs the fused TCN trunk, which implements the gLN "
+            "topology only; a causal (cLN) Conv-TasNet trains through the module "
+            "(tasnet_pallas_trunk=false)"
         )
-    device = _device()
+    device = _device(args.device)
     model = _build_model(cfg, device)
-    train_step, eval_step = train.make_upit_waveform_steps(
-        model,
-        cfg.stft.size,
-        cfg.stft.shift,
-        cfg.num_speakers,
-        compute_dtype=torch.bfloat16 if cfg.bf16_compute else None,
-    )
+    if cfg.variant == "tasnet":
+        train_step, eval_step = train.make_time_domain_steps(
+            model,
+            compute_dtype=torch.bfloat16
+            if (cfg.bf16_compute or cfg.tasnet_pallas_trunk)
+            else None,
+            pallas_trunk=cfg.tasnet_pallas_trunk,
+        )
+
+        def batch_arrays(b):
+            return b.mix, b.sources, b.sample_lengths
+
+    else:
+        train_step, eval_step = train.make_upit_waveform_steps(
+            model,
+            cfg.stft.size,
+            cfg.stft.shift,
+            cfg.num_speakers,
+            compute_dtype=torch.bfloat16 if cfg.bf16_compute else None,
+        )
+
+        def batch_arrays(b):
+            return b.mix, b.sources, b.frame_lengths
+
     root = pathlib.Path(cfg.data_root)
 
     def make_loader(split: str, shuffle: bool) -> WaveformLoader:
@@ -129,7 +163,7 @@ def cmd_train(args) -> None:
         eval_step,
         train_loader,
         make_loader(cfg.val_split, False),
-        lambda b: (b.mix, b.sources, b.frame_lengths),
+        batch_arrays,
         epochs=cfg.epochs,
         patience=cfg.patience,
         checkpoints=ckpt,
@@ -175,7 +209,7 @@ def _restore_upit(checkpoint_dir: str, device: torch.device):
 def cmd_separate(args) -> None:
     from .separate.pipeline import separate_directory
 
-    device = _device()
+    device = _device(args.device)
     cfg, model = _restore_upit(args.checkpoint_dir, device)
     if cfg.variant == "tasnet":
         _separate_time_domain(cfg, model, args, device)
@@ -291,6 +325,16 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
     print(json.dumps({"written": written, "out_dir": str(out_dir), "device": str(device)}))
 
 
+def _add_device(parser) -> None:
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        choices=["cuda", "cpu"],
+        help="where to run (default cuda: exits if there is no GPU; cpu runs every kernel's "
+        "plain version)",
+    )
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="speech_separation_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -302,6 +346,7 @@ def main(argv=None) -> None:
     p.add_argument("--epochs", type=int)
     p.add_argument("--checkpoint-dir", default="./CKPT")
     p.add_argument("--resume", action="store_true", help="resume from latest checkpoint")
+    _add_device(p)
     p.set_defaults(func=cmd_train)
 
     p = sub.add_parser("separate", help="separate a split with a trained model")
@@ -343,6 +388,7 @@ def main(argv=None) -> None:
         default=1.0,
         help="overlap between serving chunks (with --chunk-seconds)",
     )
+    _add_device(p)
     p.set_defaults(func=cmd_separate)
 
     args = parser.parse_args(argv)

@@ -1,5 +1,5 @@
 """Training losses (counterpart of ``losses/``)."""
 
-from .pit import pairwise_pit_costs, pit_loss
+from .pit import pairwise_pit_costs, pit_loss, pit_si_sdr_loss
 
-__all__ = ["pairwise_pit_costs", "pit_loss"]
+__all__ = ["pairwise_pit_costs", "pit_loss", "pit_si_sdr_loss"]

@@ -9,6 +9,9 @@ count through a static permutation table:
   the utterance's valid length;
 - the minimum over permutations per utterance, **summed** over the batch
   (``reduction="mean"`` averages, ``"none"`` returns ``[B]``).
+
+:func:`pit_si_sdr_loss` is the time-domain objective (Conv-TasNet): the
+negative permutation-best mean SI-SDR over waveforms.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import itertools
 
 import torch
 
-__all__ = ["pairwise_pit_costs", "pit_loss"]
+__all__ = ["pairwise_pit_costs", "pit_loss", "pit_si_sdr_loss"]
 
 
 def _split_speakers(x: torch.Tensor, num_speakers: int) -> torch.Tensor:
@@ -74,3 +77,32 @@ def pit_loss(
     if reduction == "mean":
         return per_utt.mean()
     return per_utt
+
+
+def pit_si_sdr_loss(
+    est: torch.Tensor,
+    refs: torch.Tensor,
+    sample_lengths: torch.Tensor,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Negative permutation-best mean SI-SDR: ``est`` / ``refs`` ``[B, S,
+    samples]``, ``sample_lengths [B]``. Samples past an utterance's length
+    are masked out of both signals. The noise term is an explicit
+    subtraction: the algebraic ``‖e‖² − 2α<e,r> + ‖αr‖²`` cancels
+    catastrophically in fp32 when ``est ≈ ref``."""
+    b, s, t = est.shape
+    lengths = torch.as_tensor(sample_lengths, device=est.device)
+    mask = (torch.arange(t, device=est.device)[None, None, :] < lengths[:, None, None]).to(est.dtype)
+    est = est * mask
+    refs = refs * mask
+    dot = torch.einsum("bet,brt->ber", est, refs)  # [B, S_est, S_ref]
+    ref_energy = refs.square().sum(dim=-1)[:, None, :]  # [B, 1, S_ref]
+    scale = dot / (ref_energy + eps)
+    target_energy = scale.square() * ref_energy  # ‖α·r‖²
+    noise = est[:, :, None, :] - scale[..., None] * refs[:, None, :, :]
+    noise_energy = noise.square().sum(dim=-1)
+    pair_si_sdr = 10.0 * torch.log10(target_energy / (noise_energy + eps) + eps)
+    perms = torch.tensor(list(itertools.permutations(range(s))), device=est.device)  # [S!, S]
+    idx = torch.arange(s, device=est.device)
+    per_perm = pair_si_sdr[:, idx[None, :], perms].mean(dim=-1)  # [B, S!]
+    return -per_perm.max(dim=1).values.mean()

@@ -18,16 +18,23 @@ the serving path with the whole TCN trunk in the ``tcn_trunk`` CUDA kernel
 decoder stay PyTorch (cuDNN and cuBLAS), as the JAX package leaves them to XLA
 around its Pallas trunk. Both take the fp32 module and read its parameters;
 both serve the gLN topology only.
+
+:func:`train_apply` is the differentiable counterpart of ``cuda_apply`` that
+``make_time_domain_steps(pallas_trunk=True)`` trains through (the JAX kernel
+branch's ``_forward``): the live fp32 parameters cast to bf16 inside, the
+trunk in the training kernels (``ops/tcn_train_cuda.py``), so gradients reach
+every parameter in fp32.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.tcn_cuda import stack_tcn_weights, tcn_trunk_cuda, tcn_trunk_plain
+from ..ops.tcn_cuda import stack_canonical, stack_tcn_weights, tcn_trunk_cuda, tcn_trunk_plain
+from ..ops.tcn_train_cuda import tcn_trunk_train
 from .tasnet import ConvTasNet, decode, depthwise, encode
 
-__all__ = ["fused_apply", "cuda_apply"]
+__all__ = ["fused_apply", "cuda_apply", "train_apply"]
 
 
 def _gln_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
@@ -56,10 +63,11 @@ def _folded_dot(x, sab, w, gamma, bias, dt):
     return (out.float() * s[:, None, None] + bias2[:, None, :]).to(dt)
 
 
-def _params(model: ConvTasNet) -> dict[str, torch.Tensor]:
+def _params(model: ConvTasNet, live: bool = False) -> dict[str, torch.Tensor]:
+    """The module's parameters in fp32, detached unless ``live``."""
     if not isinstance(model, ConvTasNet):
         raise TypeError(f"expected a ConvTasNet, got {type(model).__name__}")
-    return {name: p.detach().float() for name, p in model.named_parameters()}
+    return {name: p.float() if live else p.detach().float() for name, p in model.named_parameters()}
 
 
 def _encode_and_project(p, mix, win, dt):
@@ -151,8 +159,27 @@ def cuda_apply(model: ConvTasNet, mix: torch.Tensor, *, plain: bool = False) -> 
     p = _params(model)
     feats, h = _encode_and_project(p, mix, model.win, dt)
     stacks = stack_tcn_weights(p, blocks=model.blocks, repeats=model.repeats)
-    dils = tuple(2**x for _ in range(model.repeats) for x in range(model.blocks))
     trunk = tcn_trunk_plain if plain else tcn_trunk_cuda
-    skip_sum = trunk(h, *stacks, dils=dils, taps=model.kernel)
+    skip_sum = trunk(h, *stacks, dils=_dilations(model), taps=model.kernel)
+    return _mask_and_decode(p, feats, skip_sum, model.num_speakers, model.enc_dim, model.win,
+                            mix.shape[1], dt)
+
+
+def _dilations(model: ConvTasNet) -> tuple[int, ...]:
+    return tuple(2**x for _ in range(model.repeats) for x in range(model.blocks))
+
+
+def train_apply(model: ConvTasNet, mix: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """``ConvTasNet`` forward for training, differentiable in the module's
+    parameters, with the TCN trunk in the training kernels (bf16, the
+    kernels' contract): ``mix [B, samples]`` (a multiple of ``win // 2``) →
+    fp32 ``[B, S, samples]``. ``plain=True`` runs the trunk's plain versions
+    on any device. Raises on a causal model."""
+    _check_mix(model, mix)
+    dt = torch.bfloat16
+    p = _params(model, live=True)
+    feats, h = _encode_and_project(p, mix, model.win, dt)
+    arrays = stack_canonical(p, blocks=model.blocks, repeats=model.repeats)
+    skip_sum = tcn_trunk_train(h, *arrays, dils=_dilations(model), taps=model.kernel, plain=plain)
     return _mask_and_decode(p, feats, skip_sum, model.num_speakers, model.enc_dim, model.win,
                             mix.shape[1], dt)

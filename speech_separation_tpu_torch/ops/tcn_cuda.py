@@ -38,9 +38,12 @@ __all__ = [
     "MAX_DILATION",
     "stack_canonical",
     "stack_tcn_weights",
+    "fold_canonical",
     "trunk_reference",
+    "trunk_forward_plain",
     "tcn_trunk_plain",
     "tcn_trunk_cuda",
+    "launch_trunk",
 ]
 
 MAX_DILATION = 64  # tcn_trunk_pallas' slab halo; its assert is kept
@@ -99,19 +102,27 @@ def stack_canonical(params: Mapping[str, torch.Tensor], *, blocks: int, repeats:
 
 def stack_tcn_weights(params: Mapping[str, torch.Tensor], *, blocks: int, repeats: int):
     """The kernel's input arrays ``(we, wdw, wg, vecs)``, derived from
-    :func:`stack_canonical` as ``tcn_pallas.stack_tcn_weights`` derives them:
+    :func:`stack_canonical` as ``tcn_pallas.stack_tcn_weights`` derives them
+    (:func:`fold_canonical`)."""
+    return fold_canonical(*stack_canonical(params, blocks=blocks, repeats=repeats))
 
-      we   [N, cb, ch]    bf16 - expand 1x1 kernels
+
+def fold_canonical(we, wdw, wcat, cvecs, dtype: torch.dtype = torch.bfloat16):
+    """The canonical arrays folded for the trunk kernel, gLN2's gamma into the
+    res|skip product:
+
+      we   [N, cb, ch]    ``dtype`` - expand 1x1 kernels
       wdw  [N, taps, ch]  fp32 - depthwise kernels
-      wg   [N, ch, 2cb]   bf16 - gamma2-folded concat(res, skip)
+      wg   [N, ch, 2cb]   ``dtype`` - gamma2-folded concat(res, skip)
       vecs [N, 8, vdim]   fp32 - per-block vectors:
         0: expand bias   1: norm1 gamma  2: norm1 beta  3: depthwise bias
         4: beta2 @ W_cat + bias_cat (biasc)  5: colsum(gamma2 * W_cat) (csum)
         6: prelu1 alpha (broadcast)     7: prelu2 alpha (broadcast)
 
-    ``biasc`` and ``csum`` are taken from the fp32 fold; only ``wg`` is rounded.
+    ``biasc`` and ``csum`` are taken from the fp32 fold; only ``we`` and ``wg``
+    are rounded to ``dtype`` (bf16 for the kernel).
     """
-    we, wdw, wcat, cvecs = stack_canonical(params, blocks=blocks, repeats=repeats)
+    we, wdw, wcat, cvecs = (t.float() for t in (we, wdw, wcat, cvecs))
     ch, out2 = wcat.shape[1:]
     vdim = cvecs.shape[2]
     g2, b2, bcat = cvecs[:, 4, :ch], cvecs[:, 5, :ch], cvecs[:, 6, :out2]
@@ -133,15 +144,15 @@ def stack_tcn_weights(params: Mapping[str, torch.Tensor], *, blocks: int, repeat
         ],
         dim=1,
     )
-    return we.to(torch.bfloat16), wdw.float(), wgf.to(torch.bfloat16), vecs
+    return we.to(dtype), wdw, wgf.to(dtype), vecs
 
 
 def trunk_reference(h0, we, wdw, wcat, vecs, *, dils: Sequence[int], taps: int = 3):
-    """fp32 reference of the trunk over the canonical arrays (differentiable):
-    the skip sum ``[B, K, cb]``."""
+    """Reference of the trunk over the canonical arrays (differentiable), in
+    their dtype (fp32, or float64 as an oracle): the skip sum ``[B, K, cb]``."""
     k, cb = h0.shape[1:]
     ch = we.shape[2]
-    h = h0.float()
+    h = h0.to(we.dtype)
     skip = torch.zeros_like(h)
     for j, d in enumerate(dils):
         be, g1, b1, bdw = (vecs[j, i, :ch] for i in range(4))
@@ -171,9 +182,10 @@ def _inv_std(x: torch.Tensor) -> torch.Tensor:
     return torch.rsqrt(torch.clamp((x * x).mean(dim=(1, 2), keepdim=True) - mu * mu, min=0.0) + _EPS)
 
 
-def _check(h0, we, wdw, wg, vecs, dils, taps):
+def _check(h0, we, wdw, wg, vecs, dils, taps, storage=torch.bfloat16):
     """Validate the trunk's inputs as ``tcn_trunk_pallas`` asserts them, plus
-    dtypes and shapes; returns ``(batch, frames, cb, ch, blocks)``."""
+    dtypes (``we`` and ``wg`` in the storage dtype) and shapes; returns
+    ``(batch, frames, cb, ch, blocks)``."""
     if h0.dim() != 3 or we.dim() != 3 or wdw.dim() != 3 or wg.dim() != 3 or vecs.dim() != 3:
         raise ValueError("tcn_trunk: expected h0 [B, K, cb], we, wdw, wg and vecs of rank 3")
     b, k, cb = h0.shape
@@ -188,8 +200,8 @@ def _check(h0, we, wdw, wg, vecs, dils, taps):
             raise ValueError(f"tcn_trunk: {name} {tuple(t.shape)}, expected {want[name]}")
     if vecs.shape[0] != n or vecs.shape[1] != 8 or vecs.shape[2] < max(ch, 2 * cb):
         raise ValueError(f"tcn_trunk: vecs {tuple(vecs.shape)}, expected [{n}, 8, >= {max(ch, 2 * cb)}]")
-    if we.dtype != torch.bfloat16 or wg.dtype != torch.bfloat16:
-        raise TypeError(f"tcn_trunk: we and wg must be bf16, got {we.dtype} and {wg.dtype}")
+    if we.dtype != storage or wg.dtype != storage:
+        raise TypeError(f"tcn_trunk: we and wg must be {storage}, got {we.dtype} and {wg.dtype}")
     if wdw.dtype != torch.float32 or vecs.dtype != torch.float32:
         raise TypeError(f"tcn_trunk: wdw and vecs must be fp32, got {wdw.dtype} and {vecs.dtype}")
     if not h0.is_floating_point() or b < 1 or k < 1:
@@ -201,17 +213,31 @@ def tcn_trunk_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3
     """Plain version of :func:`tcn_trunk_cuda`, on any device: the same
     roundings (h, skip, t1 and t2 stored bf16; statistics from the fp32
     values; products of bf16 operands in fp32)."""
-    _, k, cb, ch, _ = _check(h0, we, wdw, wg, vecs, dils, taps)
+    return trunk_forward_plain(h0, we, wdw, wg, vecs, dils=dils, taps=taps)[0]
+
+
+def trunk_forward_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3,
+                        storage: torch.dtype = torch.bfloat16, residuals: bool = False):
+    """The trunk in plain PyTorch with its roundings to ``storage`` (bf16 for
+    the kernels): ``(skip, hb, st)``. ``residuals=True`` also returns the
+    training forward's residuals, each block's input ``hb [N, B, K, cb]``
+    (``storage``) and ``st [N, B, 4]`` fp32 ``(mu1, 1/sigma1, mu2, 1/sigma2)``;
+    else both are ``None``."""
+    b, k, cb, ch, n = _check(h0, we, wdw, wg, vecs, dils, taps, storage)
     inv_n = torch.tensor(1.0 / (k * ch), dtype=torch.float32, device=h0.device)
     rows = torch.arange(k, device=h0.device)
-    h = h0.to(torch.bfloat16)
+    h = h0.to(storage)
     skip = torch.zeros_like(h)
+    hb = h.new_empty((n, b, k, cb)) if residuals else None
+    st = torch.empty((n, b, 4), dtype=torch.float32, device=h0.device) if residuals else None
     for j, d in enumerate(dils):
         v = vecs[j]
         b_e, g1, be1, b_dw = v[0, :ch], v[1, :ch], v[2, :ch], v[3, :ch]
         biasc, csum = v[4, : 2 * cb], v[5, : 2 * cb]
         a1, a2 = v[6, :ch], v[7, :ch]
         w = [wdw[j, t] for t in range(taps)]
+        if residuals:
+            hb[j] = h
 
         y = h.float() @ we[j].float() + b_e
         t1 = torch.where(y >= 0, y, a1 * y)
@@ -224,7 +250,7 @@ def tcn_trunk_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3
         b_eff = bv1 * wsum + b_dw
 
         pad = (taps - 1) * d // 2
-        t1p = F.pad(t1.to(torch.bfloat16).float(), (0, 0, pad, (taps - 1) * d - pad))
+        t1p = F.pad(t1.to(storage).float(), (0, 0, pad, (taps - 1) * d - pad))
         pre = b_eff[:, None, :]
         for t in range(taps):
             pre = pre + (av1 * w[t])[:, None, :] * t1p[:, t * d : t * d + k]
@@ -236,11 +262,13 @@ def tcn_trunk_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3
         t2 = torch.where(pre >= 0, pre, a2 * pre)
         mu2, st2 = _folded_stats(t2, inv_n)
         bias2 = biasc - (mu2 * st2)[:, None] * csum  # [B, 2cb]
+        if residuals:
+            st[j] = torch.stack([mu1, st1, mu2, st2], dim=1)
 
-        rs = (t2.to(torch.bfloat16).float() @ wg[j].float()) * st2[:, None, None] + bias2[:, None, :]
-        h = (h.float() + rs[..., :cb]).to(torch.bfloat16)
-        skip = (skip.float() + rs[..., cb:]).to(torch.bfloat16)
-    return skip
+        rs = (t2.to(storage).float() @ wg[j].float()) * st2[:, None, None] + bias2[:, None, :]
+        h = (h.float() + rs[..., :cb]).to(storage)
+        skip = (skip.float() + rs[..., cb:]).to(storage)
+    return skip, hb, st
 
 
 def _folded_stats(x: torch.Tensor, inv_n: torch.Tensor):
@@ -260,13 +288,23 @@ def tcn_trunk_cuda(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3)
     """
     if h0.device.type == "cpu":
         return tcn_trunk_plain(h0, we, wdw, wg, vecs, dils=dils, taps=taps)
+    skip, _, _ = launch_trunk(h0, we, wdw, wg, vecs, dils=dils, taps=taps, name="tcn_trunk_cuda")
+    tcn_trunk_cuda.launches += 1
+    return skip
+
+
+tcn_trunk_cuda.launches = 0
+
+
+def launch_trunk(h0, we, wdw, wg, vecs, *, dils, taps, name: str, residuals: bool = False):
+    """Run ``csrc/tcn_trunk.cu`` on CUDA tensors (checked, or raises): ``(skip,
+    hb, st)``, the residuals from its training mode when ``residuals`` (see
+    ``trunk_forward_plain``), else ``None``."""
     if h0.device.type != "cuda" or any(t.device != h0.device for t in (we, wdw, wg, vecs)):
-        raise ValueError(
-            f"tcn_trunk_cuda: tensors on {[str(t.device) for t in (h0, we, wdw, wg, vecs)]}"
-        )
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in (h0, we, wdw, wg, vecs)]}")
     b, k, cb, ch, n = _check(h0, we, wdw, wg, vecs, dils, taps)
     if cb % 8 or ch % 8:
-        raise ValueError(f"tcn_trunk_cuda: cb={cb} and ch={ch} must be multiples of 8")
+        raise ValueError(f"{name}: cb={cb} and ch={ch} must be multiples of 8")
     h = h0.to(torch.bfloat16).contiguous().clone()  # the carry, updated in place
     skip = torch.zeros_like(h)
     t1 = torch.empty((b, k, ch), dtype=torch.bfloat16, device=h.device)
@@ -276,16 +314,18 @@ def tcn_trunk_cuda(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3)
     part = torch.empty((b * parts, 2), dtype=torch.float32, device=h.device)
     we, wdw, wg, vecs = (t.contiguous() for t in (we, wdw, wg, vecs))
     dil_array = (ctypes.c_int * n)(*(int(d) for d in dils))
-    with torch.cuda.device(h.device):
-        code = _build.library().sst_tcn_trunk(
-            h.data_ptr(), skip.data_ptr(), t1.data_ptr(), t2.data_ptr(), part.data_ptr(),
+    args = [h.data_ptr(), skip.data_ptr(), t1.data_ptr(), t2.data_ptr(), part.data_ptr(),
             we.data_ptr(), wdw.data_ptr(), wg.data_ptr(), vecs.data_ptr(),
-            ctypes.addressof(dil_array), b, k, cb, ch, vecs.shape[2], taps, n,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "tcn_trunk")
-    tcn_trunk_cuda.launches += 1
-    return skip
-
-
-tcn_trunk_cuda.launches = 0
+            ctypes.addressof(dil_array)]
+    hb = st = None
+    if residuals:
+        hb = torch.empty((n, b, k, cb), dtype=torch.bfloat16, device=h.device)
+        st = torch.empty((n, b, 4), dtype=torch.float32, device=h.device)
+        args += [hb.data_ptr(), st.data_ptr()]
+    lib = _build.library()
+    entry = lib.sst_tcn_trunk_train if residuals else lib.sst_tcn_trunk
+    with torch.cuda.device(h.device):
+        code = entry(*args, b, k, cb, ch, vecs.shape[2], taps, n,
+                     torch.cuda.current_stream().cuda_stream)
+    _build.check(code, name)
+    return skip, hb, st

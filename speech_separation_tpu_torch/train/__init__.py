@@ -5,7 +5,7 @@ from .checkpoint import CheckpointManager
 from .loop import FitResult, fit
 from .optim import Adam, adam, cosine_adam, exponential_decay_adam
 from .state import TrainState
-from .steps import make_upit_waveform_steps
+from .steps import make_time_domain_steps, make_upit_waveform_steps
 
 __all__ = [
     "Adam",
@@ -16,5 +16,6 @@ __all__ = [
     "cosine_adam",
     "exponential_decay_adam",
     "fit",
+    "make_time_domain_steps",
     "make_upit_waveform_steps",
 ]

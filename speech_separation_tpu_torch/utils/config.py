@@ -2,12 +2,13 @@
 ``utils/config.py``).
 
 :class:`UPitTrainConfig` keeps the JAX package's field names and defaults, so
-one ``cfg.json`` configures either package. ``variant`` is ``"blstm"`` (served
-and trained) or ``"tasnet"`` (served; ``cli train`` refuses it until its
-training slice). Fields whose feature the port does not serve yet raise
-``ValueError`` when set, rather than being ignored: ``variant="conv"``,
-``pack``, ``dynamic_mix``, and a mesh of more than one device. ``blstm_pallas_scan`` is accepted and has no effect:
-on a GPU the port always runs its training kernels.
+one ``cfg.json`` configures either package. ``variant`` is ``"blstm"`` or
+``"tasnet"``, both served and trained (``tasnet_pallas_trunk`` trains
+Conv-TasNet through the trunk's training kernels). Fields whose feature the
+port does not serve yet raise ``ValueError`` when set, rather than being
+ignored: ``variant="conv"``, ``pack``, ``dynamic_mix``, and a mesh of more
+than one device. ``blstm_pallas_scan`` is accepted and has no effect: on a GPU
+the port always runs its BiLSTM training kernels.
 """
 
 from __future__ import annotations

@@ -28,7 +28,19 @@ from speech_separation_tpu_torch.models.tasnet import ConvTasNet
 from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply
 from speech_separation_tpu_torch.ops.stft import stft
 from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
-from speech_separation_tpu_torch.ops.tcn_cuda import tcn_trunk_cuda, tcn_trunk_plain
+from speech_separation_tpu_torch.ops.tcn_cuda import (
+    fold_canonical,
+    tcn_trunk_cuda,
+    tcn_trunk_plain,
+    trunk_reference,
+)
+from speech_separation_tpu_torch.ops.tcn_train_cuda import (
+    tcn_train_backward,
+    tcn_train_backward_plain,
+    tcn_train_forward,
+    tcn_train_forward_plain,
+    tcn_trunk_train,
+)
 from speech_separation_tpu_torch.separate.pipeline import make_separate_fn
 
 pytestmark = pytest.mark.cuda
@@ -253,3 +265,107 @@ def test_cuda_apply_kernel_trunk_matches_plain_trunk(cuda_device):
     assert got.shape == (3, 2, 8800) and torch.isfinite(got).all()
     snr = 10 * torch.log10(want.square().sum() / (got - want).square().sum().clamp_min(1e-30))
     assert snr.item() >= SERVE_KERNEL_DB
+
+
+# The training trunk kernels against their plain versions (both bf16). The
+# forward is the serving kernel with residual stores: its skip equals
+# tcn_trunk_cuda's bit for bit, and like it, it differs from the plain version
+# by carried one-ulp bf16 flips (TRUNK_BF16_REL). The backward rounds seven
+# slabs to bf16 and sums over (K, ch) in another order than the plain
+# version; a flip there moves a gradient by one bf16 ulp of its summands
+# (2^-8), which is within 3e-2 of each gradient's L2 norm.
+TRAIN_TRUNK_GRAD_REL = 3e-2
+TRAIN_TRUNK_FP32_REL = 1e-4  # fp32 plain backward against autograd through trunk_reference
+
+
+def _canonical_inputs(batch, frames, cb, ch, dils, device, seed):
+    n = len(dils)
+    vdim = max(ch, 2 * cb)
+    vecs = _normal((n, 10, vdim), seed) * 0.1
+    vecs[:, 1] += 1.0  # norm1 gamma near 1
+    vecs[:, 4] += 1.0  # norm2 gamma near 1
+    vecs[:, 7] = 0.0
+    vecs[:, 8], vecs[:, 9] = 0.25, 0.2  # PReLU slopes
+    return (
+        _normal((batch, frames, cb), seed + 1).to(device),
+        (_normal((n, cb, ch), seed + 2) / np.sqrt(cb)).to(device),
+        (_normal((n, 3, ch), seed + 3) / np.sqrt(3)).to(device),
+        (_normal((n, ch, 2 * cb), seed + 4) / np.sqrt(ch)).to(device),
+        vecs.to(device),
+    )
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("frames", [130, 1100])  # ragged: no multiple of a 64-frame tile
+@pytest.mark.parametrize("cb,ch", [(32, 48), (128, 256)])
+def test_tcn_train_kernels_match_plain(cuda_device, frames, cb, ch):
+    dils = (1, 2, 4, 8, 16, 32, 64, 1)
+    h0, we, wdw, wcat, vecs = _canonical_inputs(2, frames, cb, ch, dils, cuda_device, seed=50)
+    folded = fold_canonical(we, wdw, wcat, vecs)
+    before = (tcn_train_forward.launches, tcn_train_backward.launches)
+    skip, hb, st = tcn_train_forward(h0, *folded, dils=dils)
+    want = tcn_train_forward_plain(h0, *folded, dils=dils)
+    torch.cuda.synchronize()
+    assert torch.equal(skip, tcn_trunk_cuda(h0, *folded, dils=dils))  # the serving trunk
+    assert skip.dtype == hb.dtype == torch.bfloat16 and hb.shape == (len(dils), 2, frames, cb)
+    assert st.shape == (len(dils), 2, 4)
+    for got, ref in zip((skip, hb), want[:2]):
+        bound = TRUNK_BF16_REL * max(1.0, ref.float().abs().max().item())
+        assert (got.float() - ref.float()).abs().max().item() <= bound
+    assert _rel(st, want[2]) <= 1e-2
+    dskip = _normal((2, frames, cb), seed=60).to(cuda_device)
+    got = tcn_train_backward(dskip, hb, st, we, wdw, wcat, vecs, dils=dils)
+    again = tcn_train_backward(dskip, hb, st, we, wdw, wcat, vecs, dils=dils)
+    ref = tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, dils=dils)
+    torch.cuda.synchronize()
+    assert (tcn_train_forward.launches - before[0], tcn_train_backward.launches - before[1]) == (1, 2)
+    for name, g, a, r in zip(("dh0", "dwe", "dwdw", "dwcat", "dvec"), got, again, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape, name
+        assert torch.equal(g, a), name  # fixed-order sums: bit-identical reruns
+        assert _rel(g, r) <= TRAIN_TRUNK_GRAD_REL, (name, _rel(g, r))
+
+
+def test_tcn_trunk_train_grads_match_autograd(cuda_device):
+    """The kernel path's gradients (bf16) and the plain path's in fp32 storage
+    against autograd through the fp32 trunk_reference."""
+    dils = (1, 2, 4, 8, 1, 2)
+    inputs = _canonical_inputs(2, 300, 32, 48, dils, cuda_device, seed=70)
+    probe = _normal((2, 300, 32), seed=80).to(cuda_device)
+    grads = {}
+    for kind in ("kernel", "fp32", "reference"):
+        params = [t.clone().requires_grad_() for t in inputs]
+        if kind == "reference":
+            out = trunk_reference(*params, dils=dils)
+        else:
+            out = tcn_trunk_train(*params, dils=dils, plain=kind == "fp32",
+                                  storage=torch.float32 if kind == "fp32" else torch.bfloat16)
+        (out.float() * probe).sum().backward()
+        grads[kind] = [p.grad for p in params]
+    for i, want in enumerate(grads["reference"]):
+        if i == 4:  # the PReLU slopes' lanes are summed by stack_canonical
+            want = torch.cat([want[:, :8].flatten(), want[:, 8:].sum(-1).flatten()])
+            got = {k: torch.cat([g[4][:, :8].flatten(), g[4][:, 8:].sum(-1).flatten()])
+                   for k, g in grads.items()}
+        else:
+            got = {k: g[i] for k, g in grads.items()}
+        assert _rel(got["fp32"], want) <= TRAIN_TRUNK_FP32_REL, i
+        assert _rel(got["kernel"], want) <= 0.2, i  # bf16 storage: ~15-20 dB, as on the TPU
+
+
+def test_tcn_train_kernels_raise(cuda_device):
+    dils = (1, 2, 4, 8)
+    h0, we, wdw, wcat, vecs = _canonical_inputs(1, 100, 32, 48, dils, cuda_device, seed=90)
+    folded = fold_canonical(we, wdw, wcat, vecs)
+    with pytest.raises(ValueError, match="tensors on"):
+        tcn_train_forward(h0, folded[0].cpu(), *folded[1:], dils=dils)
+    with pytest.raises(TypeError, match="stores bf16"):
+        tcn_train_forward(h0, *fold_canonical(we, wdw, wcat, vecs, torch.float32), dils=dils,
+                          storage=torch.float32)
+    _, hb, st = tcn_train_forward(h0, *folded, dils=dils)
+    with pytest.raises(ValueError, match="dskip"):
+        tcn_train_backward(h0[:, :-1], hb, st, we, wdw, wcat, vecs, dils=dils)
+    with pytest.raises(ValueError, match="tensors on"):
+        tcn_train_backward(h0, hb, st.cpu(), we, wdw, wcat, vecs, dils=dils)

@@ -152,6 +152,7 @@ def test_port_imports_without_jax():
         "speech_separation_tpu_torch.models.tasnet",
         "speech_separation_tpu_torch.models.tasnet_serving",
         "speech_separation_tpu_torch.ops.tcn_cuda",
+        "speech_separation_tpu_torch.ops.tcn_train_cuda",
         "speech_separation_tpu_torch.separate.tasnet_chunked",
     } <= names
 
@@ -159,8 +160,10 @@ def test_port_imports_without_jax():
 def test_build_command_targets_sm90a_with_every_source(tmp_path):
     names = sorted(s.name for s in _build.SOURCES)
     assert names == [
-        "lstm_recurrence.cu", "lstm_train_backward.cu", "stft_analysis.cu", "tcn_trunk.cu"
+        "lstm_recurrence.cu", "lstm_train_backward.cu", "stft_analysis.cu",
+        "tcn_train_backward.cu", "tcn_trunk.cu",
     ]
+    assert [s.name for s in _build.HEADERS] == ["tcn_common.cuh"]
     *compiles, link = _build.nvcc_commands("nvcc", tmp_path / "lib.so")
     # one compile per source, run together, then one link of their objects
     assert all("arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd for cmd in compiles)

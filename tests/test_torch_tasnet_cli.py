@@ -78,7 +78,7 @@ def checkpoint(tmp_path_factory):
 
 def _separate(checkpoint_dir, root, out_dir, *extra):
     cli.main(["separate", "--checkpoint-dir", str(checkpoint_dir), "--data-root", str(root),
-              "--out-dir", str(out_dir), *extra])
+              "--out-dir", str(out_dir), "--device", "cpu", *extra])
 
 
 def _write_all(est_fn, root, out_dir, write, batch_size=2):
@@ -232,9 +232,13 @@ def test_cli_causal_checkpoint_refuses_the_pallas_kernel(fixture_tree, tmp_path)
 
 
 def test_cli_train_refuses_tasnet(fixture_tree, tmp_path):
+    """Conv-TasNet trains since its training slice; what stays refused is a
+    causal (cLN) model through the gLN-only kernel trunk."""
     cfg = tmp_path / "cfg.json"
-    cfg.write_text(json.dumps({"variant": "tasnet"}))
-    with pytest.raises(SystemExit, match="variant 'tasnet' is served"):
+    cfg.write_text(json.dumps({"variant": "tasnet", "tasnet_causal": True,
+                               "tasnet_pallas_trunk": True}))
+    with pytest.raises(SystemExit, match="gLN") as info:
         cli.main(["train", "--config", str(cfg), "--data-root", str(fixture_tree), "--epochs", "1",
-                  "--checkpoint-dir", str(tmp_path / "ckpt")])
+                  "--checkpoint-dir", str(tmp_path / "ckpt"), "--device", "cpu"])
+    assert info.value.code not in (0, None)
     assert not (tmp_path / "ckpt").exists()

@@ -444,7 +444,8 @@ def test_cli_train_then_separate(tmp_path, fixture_tree, capsys):
     cfg.write_text(json.dumps({"hidden": 8, "num_layers": 1, "seed": 3}))
     ckpt = tmp_path / "CKPT"
     cli.main(["train", "--workload", "upit", "--config", str(cfg), "--data-root",
-              str(fixture_tree), "--epochs", "2", "--checkpoint-dir", str(ckpt)])
+              str(fixture_tree), "--epochs", "2", "--checkpoint-dir", str(ckpt),
+              "--device", "cpu"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["best_epoch"] in (1, 2) and np.isfinite(summary["best_val_loss"])
     records = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
@@ -458,7 +459,7 @@ def test_cli_train_then_separate(tmp_path, fixture_tree, capsys):
     # --resume continues from the newest snapshot, its step counter included
     latest = train.CheckpointManager(ckpt).latest_step
     cli.main(["train", "--config", str(cfg), "--data-root", str(fixture_tree), "--epochs", "1",
-              "--checkpoint-dir", str(ckpt), "--resume"])
+              "--checkpoint-dir", str(ckpt), "--resume", "--device", "cpu"])
     assert f"resumed from checkpoint step {latest}" in capsys.readouterr().out
     records = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
     assert len(records) == 2 + 2 * 3 + 1 + 3 and records[-1]["step"] == 3 * latest + 3
@@ -466,7 +467,7 @@ def test_cli_train_then_separate(tmp_path, fixture_tree, capsys):
     for flags in ([], ["--bf16"], ["--batch-size", "1", "--transfer-int16"]):
         out = tmp_path / f"sep{len(flags)}"
         cli.main(["separate", "--checkpoint-dir", str(ckpt), "--data-root", str(fixture_tree),
-                  "--out-dir", str(out), *flags])
+                  "--out-dir", str(out), "--device", "cpu", *flags])
         assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["written"] == 4
         for wav in sorted(out.glob("*.wav")):
             data, rate = read_wav(wav)
@@ -475,7 +476,7 @@ def test_cli_train_then_separate(tmp_path, fixture_tree, capsys):
 
 def test_cli_rejects_a_missing_checkpoint(tmp_path):
     with pytest.raises(SystemExit, match="no separator checkpoint"):
-        cli.main(["separate", "--checkpoint-dir", str(tmp_path)])
+        cli.main(["separate", "--checkpoint-dir", str(tmp_path), "--device", "cpu"])
 
 
 def test_params_round_trip_through_weights(tmp_path):
