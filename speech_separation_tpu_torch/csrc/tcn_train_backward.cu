@@ -60,6 +60,12 @@
 // tiles and chunks in order), with no float atomics, so reruns agree bit for
 // bit. Ragged frames and channels are masked or read as zero. wgmma, TMA,
 // pipelined stages and fusing P4 into P5 are later work.
+//
+// P6 computes h @ We a second time (P1 computed it for t1) instead of keeping
+// y: at the training shape that product is 2 B K cb ch = 4.2 GFLOP a block,
+// 4.2 us at 989 TFLOP/s, while y kept in fp32 is 65.5 MB written and read
+// again, 39 us at 3.35 TB/s. So the recompute is the cheaper side of the
+// bound; it costs one WMMA pass more while the products run far from peak.
 
 #include "tcn_common.cuh"
 

@@ -11,11 +11,12 @@ ch]``, ``wcat [N, ch, 2cb]``, ``vecs [N, 10, vdim]``), a
 - :func:`tcn_train_backward` — the blocks in reverse, recomputing the
   hidden-width tensors from the residuals: ``csrc/tcn_train_backward.cu``.
 
-Each has a plain PyTorch version with the same roundings and a ``storage``
-dtype (bf16, the kernels' contract; fp32 separates the derivation from bf16
-noise), which the wrapper takes only for a tensor on the CPU; on a CUDA tensor
-it launches the kernel or raises. Gradients reach every canonical array and,
-through ``stack_canonical``, the ``ConvTasNet`` parameters: the PReLU slopes
+Each has a plain PyTorch version with the same roundings, which the wrapper
+takes only for a tensor on the CPU; on a CUDA tensor it launches the kernel or
+raises. The plain versions also take a ``storage`` dtype (bf16, the kernels'
+contract; fp32 separates the derivation from bf16 noise). Gradients reach
+every canonical array and, through ``stack_canonical``, the ``ConvTasNet``
+parameters: the PReLU slopes
 (rows 8 and 9) get one gradient per lane, which the lane broadcast of
 ``stack_canonical`` sums back to the scalar.
 
@@ -58,17 +59,14 @@ def tcn_train_forward_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps:
                                residuals=True)
 
 
-def tcn_train_forward(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3,
-                      storage: torch.dtype = torch.bfloat16):
+def tcn_train_forward(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3):
     """The trunk's training forward over the folded arrays of
     :func:`~.tcn_cuda.fold_canonical`: ``(skip [B, K, cb], hb [N, B, K, cb])``
-    in ``storage`` and ``st [N, B, 4]`` fp32, ``(mu1, 1/sigma1, mu2,
+    in bf16 and ``st [N, B, 4]`` fp32, ``(mu1, 1/sigma1, mu2,
     1/sigma2)`` per block and item. ``skip`` is :func:`~.tcn_cuda.tcn_trunk_cuda`'s
     output bit for bit; ``hb[j]`` is block ``j``'s input."""
     if h0.device.type == "cpu":
-        return tcn_train_forward_plain(h0, we, wdw, wg, vecs, dils=dils, taps=taps, storage=storage)
-    if storage != torch.bfloat16:
-        raise TypeError(f"tcn_train_forward: the kernel stores bf16, got storage {storage}")
+        return tcn_train_forward_plain(h0, we, wdw, wg, vecs, dils=dils, taps=taps)
     out = launch_trunk(h0, we, wdw, wg, vecs, dils=dils, taps=taps, name="tcn_train_forward",
                        residuals=True)
     tcn_train_forward.launches += 1
@@ -198,19 +196,16 @@ def tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequen
 
 
 def tcn_train_backward(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequence[int],
-                       taps: int = 3, storage: torch.dtype = torch.bfloat16):
+                       taps: int = 3):
     """The trunk's backward: ``(dh0 [B, K, cb], dwe, dwdw, dwcat, dvec)``, all
     fp32, the gradients of ``h0`` and of the canonical arrays given the skip
     sum's gradient ``dskip [B, K, cb]`` and :func:`tcn_train_forward`'s
-    residuals ``hb``, ``st``. ``we``, ``wcat`` are used in ``storage``."""
+    residuals ``hb``, ``st``. ``we``, ``wcat`` are used in bf16."""
     if dskip.device.type == "cpu":
-        return tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, dils=dils, taps=taps,
-                                        storage=storage)
+        return tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, dils=dils, taps=taps)
     tensors = (dskip, hb, st, we, wdw, wcat, vecs)
     if dskip.device.type != "cuda" or any(t.device != dskip.device for t in tensors):
         raise ValueError(f"tcn_train_backward: tensors on {[str(t.device) for t in tensors]}")
-    if storage != torch.bfloat16:
-        raise TypeError(f"tcn_train_backward: the kernel stores bf16, got storage {storage}")
     b, k, cb, ch, n = _check_backward(dskip, hb, st, we, wdw, wcat, vecs, dils, taps)
     if cb % 8 or ch % 8:
         raise ValueError(f"tcn_train_backward: cb={cb} and ch={ch} must be multiples of 8")
@@ -259,8 +254,11 @@ class _TrunkTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h0, we, wdw, wcat, vecs, dils, taps, plain, storage):
         folded = fold_canonical(we, wdw, wcat, vecs, storage)
-        run = tcn_train_forward_plain if plain else tcn_train_forward
-        skip, hb, st = run(h0, *folded, dils=dils, taps=taps, storage=storage)
+        if plain:
+            skip, hb, st = tcn_train_forward_plain(h0, *folded, dils=dils, taps=taps,
+                                                   storage=storage)
+        else:
+            skip, hb, st = tcn_train_forward(h0, *folded, dils=dils, taps=taps)
         ctx.save_for_backward(hb, st, we, wdw, wcat, vecs)
         ctx.config = (dils, taps, plain, storage, h0.dtype)
         return skip
@@ -269,9 +267,12 @@ class _TrunkTrain(torch.autograd.Function):
     def backward(ctx, dskip):
         hb, st, we, wdw, wcat, vecs = ctx.saved_tensors
         dils, taps, plain, storage, h0_dtype = ctx.config
-        run = tcn_train_backward_plain if plain else tcn_train_backward
-        dh0, dwe, dwdw, dwcat, dvec = run(dskip, hb, st, we, wdw, wcat, vecs, dils=dils,
-                                          taps=taps, storage=storage)
+        args = (dskip, hb, st, we, wdw, wcat, vecs)
+        if plain:
+            grads = tcn_train_backward_plain(*args, dils=dils, taps=taps, storage=storage)
+        else:
+            grads = tcn_train_backward(*args, dils=dils, taps=taps)
+        dh0, dwe, dwdw, dwcat, dvec = grads
         return (dh0.to(h0_dtype), dwe.to(we.dtype), dwdw.to(wdw.dtype), dwcat.to(wcat.dtype),
                 dvec.to(vecs.dtype), None, None, None, None)
 
@@ -286,5 +287,8 @@ def tcn_trunk_train(h0, we, wdw, wcat, vecs, *, dils: Sequence[int], taps: int =
     runs both passes' plain versions on any device; ``storage=torch.float32``
     (plain only) rounds nothing.
     """
+    if storage != torch.bfloat16 and not plain:
+        raise ValueError(f"tcn_trunk_train: the kernels store bf16; storage {storage} needs "
+                         "plain=True")
     return _TrunkTrain.apply(h0, we, wdw, wcat, vecs, tuple(int(d) for d in dils), taps, plain,
                              storage)

@@ -33,13 +33,20 @@ TINY = dict(num_speakers=2, enc_dim=32, win=16, bottleneck=16, hidden=32, kernel
             repeats=2)
 LR = 1e-3
 LOSS_RTOL = 1e-5  # pit_si_sdr_loss, and the fp32 steps' losses (measured 7e-8)
-# After 2 Adam steps, the update (params - init) against JAX's, SNR over all
-# parameters. fp32: the same math (measured 114 dB). bf16 and the kernel
-# trunk: the two frameworks round at other places; Adam divides by the root of
-# the second moment, so a small gradient whose sign flips moves its parameter
-# by up to 2 lr per step either way. Measured 11.8 dB (bf16 module) and 13.3 dB
-# (kernel trunk), losses within 3.2e-3 relative, no parameter 4 lr apart.
-UPDATE_DB = {"fp32": 80.0, "bf16": 8.0, "kernel": 8.0}
+# After 2 Adam steps, the update (params - init) against JAX's, SNR over each
+# kind of leaf (gLN gamma and beta, PReLU alpha, convolution kernel and bias),
+# so that a fault confined to a small kind cannot hide under the others. fp32:
+# the same math (measured 107 to 257 dB). bf16 and the kernel trunk: the two
+# frameworks round at other places; Adam divides by the root of the second
+# moment, so a small gradient whose sign flips moves its parameter by up to
+# 2 lr per step either way. Measured, bf16 module / kernel trunk: gamma 12.0 /
+# 14.2, beta 10.8 / 14.7, kernel 11.8 / 13.2, bias 12.5 / 13.6 dB; alpha 37.7
+# / 39.1 dB (13 scalars with large gradients, none flips); losses within
+# 3.2e-3 relative, no parameter 4 lr apart.
+LEAVES = ("gamma", "beta", "alpha", "kernel", "bias")
+UPDATE_DB = {"fp32": dict.fromkeys(LEAVES, 80.0),
+             "bf16": {**dict.fromkeys(LEAVES, 8.0), "alpha": 30.0},
+             "kernel": {**dict.fromkeys(LEAVES, 8.0), "alpha": 30.0}}
 STEP_LOSS_RTOL = {"fp32": 1e-5, "bf16": 1e-2, "kernel": 1e-2}
 MAX_UPDATE_GAP = 4.5 * LR  # two steps, each at most ~2 lr apart
 
@@ -140,10 +147,13 @@ def test_time_domain_steps_match_jax(setting):
     assert got_losses[-1] < got_losses[0]
     init = convtasnet_state_dict(_batch_and_params()[1])
     assert set(got) == set(want) == set(init)
-    du_got = torch.cat([(got[k] - init[k]).flatten() for k in init]).double()
-    du_want = torch.cat([(want[k] - init[k]).flatten() for k in init]).double()
-    assert _snr_db(du_want.numpy(), du_got.numpy()) >= UPDATE_DB[setting]
-    assert (du_got - du_want).abs().max().item() <= MAX_UPDATE_GAP
+    for leaf in LEAVES:
+        keys = [k for k in init if k.rsplit(".", 1)[-1] == leaf]
+        du_got = torch.cat([(got[k] - init[k]).flatten() for k in keys]).double()
+        du_want = torch.cat([(want[k] - init[k]).flatten() for k in keys]).double()
+        assert _snr_db(du_want.numpy(), du_got.numpy()) >= UPDATE_DB[setting][leaf], leaf
+        assert (du_got - du_want).abs().max().item() <= MAX_UPDATE_GAP, leaf
+    assert {k.rsplit(".", 1)[-1] for k in init} == set(LEAVES)
 
 
 def test_kernel_path_gradients_reach_every_parameter():

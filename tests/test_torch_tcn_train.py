@@ -80,7 +80,10 @@ def _jax_grads(fn, arrays, probe):
 
 def _port(arrays, probe, storage):
     params = [torch.from_numpy(a.copy()).requires_grad_() for a in arrays]
-    out = tcn_trunk_train(*params, dils=DILS, taps=TAPS, storage=storage)
+    # fp32 storage is the plain passes' alone; bf16 takes the kernels' wrappers,
+    # which on a CPU tensor run their plain versions
+    out = tcn_trunk_train(*params, dils=DILS, taps=TAPS, storage=storage,
+                          plain=storage != torch.bfloat16)
     (out.float() * torch.from_numpy(probe)).sum().backward()
     return out.detach().float().numpy(), [p.grad.numpy() for p in params]
 
@@ -211,7 +214,7 @@ def test_grads_reach_the_convtasnet_parameters():
     model.load_state_dict(convtasnet_state_dict(params))
     named = dict(model.named_parameters())
     arrs = tcn_cuda.stack_canonical(named, blocks=2, repeats=1)
-    out = tcn_trunk_train(torch.from_numpy(h0), *arrs, dils=dils, storage=torch.float32)
+    out = tcn_trunk_train(torch.from_numpy(h0), *arrs, dils=dils, plain=True, storage=torch.float32)
     (out.float() ** 2).sum().backward()
     checked = 0
     for name, p in named.items():
