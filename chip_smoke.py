@@ -6,7 +6,9 @@
 Phases, one line each (any failed check raises and the exit code is non-zero):
 
 1. device — requires ``torch.cuda.is_available()``; prints the card's name and
-   power limit; turns TF32 off for matmuls and cuDNN (the DSP runs in fp32);
+   power limit; turns TF32 off for matmuls and cuDNN (the DSP runs in fp32,
+   and the codec's codes are argmins over fp32 distances, which TF32 in its
+   encoder's convolutions would move across near ties);
 2. build  — compiles ``speech_separation_tpu_torch/csrc/*.cu`` with nvcc for
    sm_90a into the package's ``.kernel_build/`` (one nvcc per source, together);
 3. kernels against their plain PyTorch versions on the card: the STFT
@@ -64,16 +66,35 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 14. Conv-TasNet training timing at ``bench_tasnet_train``'s shape (16 × 4 s,
    win 16): the train step of the kernel path, the plain-trunk path and the
    module's autograd in fp32 and bf16, in audio-seconds trained per second,
-   and each training kernel alone against its plain version.
+   and each training kernel alone against its plain version;
+15. the nearest-code kernel against its plain version at the codec's shapes
+   (t3tok at 64 x 8 s: deep N=12,800 D=64 K=512, skip N=51,200 D=16 K=512)
+   and a ragged N=12,803 D=13 K=509, every differing pick a near tie by
+   float64 distances; a duplicated codebook, where every exact tie must pick
+   the lower index;
+16. the codec path — the committed trained t3tok (``params_ep38.npz``) as a
+   port checkpoint, then ``cli codec-encode``, ``codec-decode`` and
+   ``codec-roundtrip`` on 4 hard-profile utterances, the reconstruction's
+   SI-SDR from codes alone; ``cli train --workload vqvae --variant t3tok``
+   for 2 epochs (tr 8, cv 4) at the JAX defaults and ``codec-roundtrip`` from
+   its checkpoint, counting the kernel's launches; on one batch the kernel
+   path's codes and reconstruction against the plain path's; 8 steps on one
+   fixed batch must lower the loss;
+17. codec timing: ``codes``, the deterministic forward (kernel and plain
+   paths) and ``decode_codes`` at 64 x 8 s in x-real-time, the t3tok train
+   step at 8 x 8 s (the committed run's batch size) in audio-seconds trained
+   per second, and the kernel alone at both shapes against its plain version,
+   on the device (queued behind a sleep kernel) and paced by the host.
 
 Every kernel's entry in the kernels line carries its bound: the larger of its
 compulsory bytes (each input read once, each output written once) over 3.35
 TB/s and the operations its function needs over the peak for their type (989
 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32), NVIDIA's H100 SXM figures
 (for the STFT a real FFT's ~2.5 N log2 N per frame, not the dense DFT product
-the kernel computes); and the time of one PyTorch call computing the same
-function where there is one (``torch.stft``, cuDNN ``nn.LSTM``), used nowhere
-in the port.
+the kernel computes; for the nearest-code search 2 N D K fp32 operations
+against 4 (N D + D K + N) bytes); and the time of one PyTorch call computing
+the same function where there is one (``torch.stft``, cuDNN ``nn.LSTM``),
+used nowhere in the port.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -363,6 +384,8 @@ def main() -> int:
     tasnet = tasnet_phases(device, gen)
     torch.cuda.empty_cache()
     tasnet_train = tasnet_training_phases(device, gen)
+    torch.cuda.empty_cache()
+    codec = codec_phases(device, gen)
 
     d, h4 = 2, 4 * hidden
     lstm_bytes = 4 * (d * BENCH_BATCH * frames * h4 + d * hidden * h4 + BENCH_BATCH * frames * d * hidden)
@@ -401,6 +424,7 @@ def main() -> int:
         *train,
         tasnet,
         *tasnet_train,
+        codec,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
@@ -902,6 +926,332 @@ def tasnet_training_phases(device, gen) -> list[dict]:
         for which, counter, line in (("forward", tcn_train_forward, 592),
                                      ("backward", tcn_train_backward, 643))
     ]
+
+
+CODEC_DIR = pathlib.Path(__file__).resolve().parent / "artifacts" / "t3tok_hard"
+CODEC_BATCH, CODEC_TRAIN_BATCH = 64, 8  # bench_tasnet's 64 x 8 s; the committed run's batch_size
+# The nearest-code kernel against its plain version (cuBLAS fp32, TF32 off) on
+# the same inputs: both fp32, each dot product summed in another order, so a
+# pick may differ only at a near tie, where the two codes' float64 squared
+# distances are within 1e-5 of ‖x‖² + max ‖e‖² (D <= 64 products each rounded
+# at 2^-24 relative, on both sides).
+CODE_NEAR_TIE_REL = 1e-5
+CODEC_SDR_DB = 0.05  # reconstruction SI-SDR from codes, kernel path against plain path
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn()``, back to back: the launches are
+    queued behind a ~25 ms sleep kernel, so the host's launch cost (tens of
+    microseconds a call, more than these kernels take) is not in the time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def si_sdr_db(est, ref) -> float:
+    import numpy as np
+
+    est, ref = np.asarray(est, np.float64), np.asarray(ref, np.float64)
+    target = (est @ ref) / (ref @ ref) * ref
+    return float(10 * np.log10((target @ target) / ((est - target) @ (est - target))))
+
+
+def near_tie_gaps(flat, codebook, got, want) -> list[float]:
+    """float64 |d(x, e_got) − d(x, e_want)| at each row where the picks
+    differ; raises where one is not a near tie."""
+    import torch
+
+    rows = (got != want).nonzero().flatten()
+    x, e = flat[rows].double(), codebook.double()
+    d_got = ((x - e[:, got[rows].long()].T) ** 2).sum(1)
+    d_want = ((x - e[:, want[rows].long()].T) ** 2).sum(1)
+    gaps = (d_got - d_want).abs()
+    scale = (x**2).sum(1) + (e**2).sum(0).max()
+    bad = (gaps > CODE_NEAR_TIE_REL * scale).nonzero().flatten()
+    if len(bad):
+        raise AssertionError(f"nearest_code differs from its plain version away from a near tie "
+                             f"at rows {rows[bad][:8].tolist()}: gaps {gaps[bad][:8].tolist()}")
+    return gaps.tolist() if len(rows) else []
+
+
+def rvq_near_ties(rvq, latent, got, want) -> tuple[int, list[float]]:
+    """Mismatched positions of two residual-VQ code streams (stage-major), and
+    the near-tie gaps of those whose earlier stages agree; a position whose
+    earlier stage already differs follows from that flip."""
+    import torch
+
+    pq = rvq.pq
+    sub = rvq.embedding_dim // pq
+    flat = latent.reshape(-1, rvq.embedding_dim).float()
+    got, want = got.reshape(-1, rvq.num_streams), want.reshape(-1, rvq.num_streams)
+    residual, mismatches, gaps = flat, 0, []
+    for d in range(rvq.depth):
+        agree = (got[:, : d * pq] == want[:, : d * pq]).all(1)
+        parts = []
+        for g in range(pq):
+            cb = rvq.embeddings[d, g].detach()
+            col = d * pq + g
+            mismatches += int((got[:, col] != want[:, col]).sum())
+            keep = agree.nonzero().flatten()
+            r = residual[keep, g * sub : (g + 1) * sub]
+            gaps += near_tie_gaps(r, cb, got[keep, col], want[keep, col])
+            parts.append(cb.T[got[:, col].long()])
+        residual = residual - torch.cat(parts, 1)
+    return mismatches, gaps
+
+
+def codec_phases(device, gen) -> dict:
+    """Phases 15 to 17; returns the nearest-code kernel's entry of the kernels line."""
+    import numpy as np
+    import torch
+
+    from speech_separation_tpu_torch import cli
+    from speech_separation_tpu_torch import train as train_mod
+    from speech_separation_tpu_torch.data.audio_io import read_normalized, read_wav
+    from speech_separation_tpu_torch.data.datasets import VaeLoader
+    from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.losses import summed_squared_error
+    from speech_separation_tpu_torch.models.vqvae import VqVaeT3Tok
+    from speech_separation_tpu_torch.ops.vq_cuda import nearest_code, nearest_code_plain
+    from speech_separation_tpu_torch.utils import VaeTrainConfig, load_config
+    from speech_separation_tpu_torch.weights import load_params_npz
+
+    # 15. the kernel against its plain version at the main path's shapes
+    frames = int(BENCH_SECONDS * SAMPLE_RATE) // 40  # 1,600 frames of 40 samples
+    shapes = {"deep": (CODEC_BATCH * frames // 8, 64, 512),
+              "skip": (CODEC_BATCH * frames // 2, 16, 512),
+              "ragged": (12_803, 13, 509)}
+    gaps, mismatches = [], {}
+    for label, (n, d, k) in shapes.items():
+        flat = torch.randn(n, d, generator=gen, device=device)
+        codebook = torch.randn(d, k, generator=gen, device=device)
+        got, want = nearest_code(flat, codebook), nearest_code_plain(flat, codebook)
+        torch.cuda.synchronize()
+        if got.shape != (n,) or got.dtype != torch.int32:
+            raise AssertionError(f"nearest_code {label}: {tuple(got.shape)} {got.dtype}")
+        found = near_tie_gaps(flat, codebook, got, want)
+        mismatches[label] = len(found)
+        gaps += found
+        phase("codec-kernel", f"nearest_code {label} N={n} D={d} K={k}: {len(found)} of {n} rows "
+              f"differ from the plain version, each a near tie (float64 gaps "
+              f"{', '.join(f'{v:.2e}' for v in found[:4]) or 'none'}; bound {CODE_NEAR_TIE_REL} x "
+              f"(‖x‖² + max ‖e‖²))")
+    # multiples of 1/32 in [-1, 1]: every score is exact in fp32 in any summation
+    # order, so duplicated columns tie exactly on both sides
+    codebook = (torch.randn(16, 300, generator=gen, device=device) * 8).round().clamp(-32, 32) / 32
+    codebook = torch.cat([codebook, codebook, codebook[:, :44]], 1).contiguous()  # 644 codes
+    picks = torch.randint(0, 644, (4096,), generator=gen, device=device)
+    flat = codebook[:, picks].T.contiguous()  # every row ties exactly between 2 or 3 codes
+    got = nearest_code(flat, codebook)
+    lowest = torch.where(picks < 300, picks, picks % 300)
+    if not (torch.equal(got, lowest.to(torch.int32)) and torch.equal(got, nearest_code_plain(flat, codebook))):
+        raise AssertionError("nearest_code: an exact tie did not pick the lowest index")
+    phase("codec-kernel", "nearest_code duplicated codebook (644 codes, 4,096 rows each tied "
+          "exactly): every pick is the lowest index, as the plain version's")
+
+    # 16. the codec path: the committed trained t3tok through the port's CLI
+    cfg = load_config(VaeTrainConfig, CODEC_DIR / "train_config.json")
+    model = cli._build_vae_model(cfg, device)
+    model.load_state_dict(load_params_npz(CODEC_DIR / "params_ep38.npz"))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != 307_880:
+        raise AssertionError(f"t3tok has {n_params} params, expected 307,880")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codec_") as tmp:
+        tmp = pathlib.Path(tmp)
+        ckpt = tmp / "ckpt"
+        state = train_mod.TrainState.create(model, train_mod.nadam(), seed=0)
+        train_mod.CheckpointManager(ckpt).save_if_best(38, state, 0.0)
+        (ckpt / "train_config.json").write_text((CODEC_DIR / "train_config.json").read_text())
+        root = make_synthetic_fixture(tmp / "fixture", utterances_per_split={"tr": 8, "cv": 4, "tt": 4},
+                                      profile="hard")
+        names = (root / "lists" / "tt_wav.lst").read_text().split()
+        nearest_code.launches = 0
+        t0 = time.perf_counter()
+        sdrs, reports = [], []
+        for i, name in enumerate(names):
+            wav_in = root / "tt" / "s1" / name
+            codes, dec, rt = tmp / f"codes_{i}.npz", tmp / f"dec_{i}.wav", tmp / f"rt_{i}.wav"
+            for argv in (["codec-encode", "--wav", str(wav_in), "--out", str(codes)],
+                         ["codec-decode", "--codes", str(codes), "--out", str(dec)],
+                         ["codec-roundtrip", "--wav", str(wav_in), "--out", str(rt)]):
+                cli.main([*argv, "--checkpoint-dir", str(ckpt)])
+            ref = read_normalized(wav_in, SAMPLE_RATE)
+            with np.load(codes) as payload:
+                deep, skip = payload["deep"], payload["skip"]
+            k = deep.shape[1] * 8
+            if deep.dtype != np.int32 or deep.shape != (1, k // 8, 2) or skip.shape != (1, k // 2, 8):
+                raise AssertionError(f"{name}: codes {deep.dtype} {deep.shape} {skip.shape}")
+            decoded, roundtrip = read_wav(dec)[0], read_wav(rt)[0]
+            if len(decoded) != 40 * k or len(roundtrip) != len(ref) or not np.isfinite(decoded).all():
+                raise AssertionError(f"{name}: decoded {len(decoded)}, round trip {len(roundtrip)} "
+                                     f"samples for {len(ref)}")
+            sdrs.append(si_sdr_db(decoded[: len(ref)], ref))
+        torch.cuda.synchronize()
+        serve_launches, serve_s = nearest_code.launches, time.perf_counter() - t0
+        phase("codec-serve", f"cli codec-encode, codec-decode, codec-roundtrip of {len(names)} "
+              f"hard-profile utterances (t3tok, params_ep38.npz, {n_params:,} params) in "
+              f"{serve_s:.2f} s: reconstruction from codes alone SI-SDR "
+              f"{', '.join(f'{v:.2f}' for v in sdrs)} dB (mean {np.mean(sdrs):.2f}); "
+              f"nearest_code launches {serve_launches}")
+
+        cfg_path = tmp / "cfg.json"
+        cfg_path.write_text(json.dumps({"seed": 0}))
+        t0 = time.perf_counter()
+        cli.main(["train", "--workload", "vqvae", "--variant", "t3tok", "--config", str(cfg_path),
+                  "--data-root", str(root), "--epochs", "2", "--checkpoint-dir", str(tmp / "trained")])
+        cli.main(["codec-roundtrip", "--checkpoint-dir", str(tmp / "trained"), "--wav",
+                  str(root / "tt" / "s1" / names[0]), "--out", str(tmp / "trained_rt.wav")])
+        torch.cuda.synchronize()
+        launches = nearest_code.launches
+        train_launches = launches - serve_launches
+        if serve_launches <= 0 or train_launches <= 0:
+            raise AssertionError(f"nearest_code never launched: serving {serve_launches}, training "
+                                 f"{train_launches}")
+        records = [json.loads(line) for line in (tmp / "trained" / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in records if "loss" in r]
+        vals = [r["val_loss"] for r in records if "val_loss" in r]
+        if len(losses) != 8 or len(vals) != 2 or not all(map(math.isfinite, losses + vals)):
+            raise AssertionError(f"cli train vqvae t3tok: step losses {losses}, val losses {vals}")
+        if not np.isfinite(read_wav(tmp / "trained_rt.wav")[0]).all():
+            raise AssertionError("codec-roundtrip of the trained checkpoint is not finite")
+        phase("codec-train", f"cli train --workload vqvae --variant t3tok (JAX defaults: batch 2, "
+              f"nadam 1e-3) 2 epochs of tr 8 + cv 4: step losses "
+              f"{', '.join(f'{v:.1f}' for v in losses)}; val {', '.join(f'{v:.1f}' for v in vals)}; "
+              f"then codec-roundtrip, {time.perf_counter() - t0:.1f} s; nearest_code launches "
+              f"{train_launches} (phase total {launches})")
+
+        # the kernel path against the plain path on one batch
+        batch = next(iter(VaeLoader(root / "tt", batch_size=4, stacked=True, stride_alignment=8)))
+        x = torch.from_numpy(batch.inputs).to(device)
+        with torch.inference_mode():
+            skip_lat, e3 = model._encode(x)
+            kernel_codes = model.codes(x)
+            plain_codes = model.codes(x, plain=True)
+            recon = {"kernel": model.decode_codes(*kernel_codes),
+                     "plain": model.decode_codes(*plain_codes)}
+        path_mismatch, path_gaps = 0, []
+        for rvq, latent, got, want in ((model.vq1, e3, kernel_codes[0], plain_codes[0]),
+                                       (model.vq2, skip_lat, kernel_codes[1], plain_codes[1])):
+            m, g = rvq_near_ties(rvq, latent, got, want)
+            path_mismatch, path_gaps = path_mismatch + m, path_gaps + g
+        diffs = []
+        for i, n in enumerate(batch.lengths):
+            ref = batch.targets[i, :n, 0]
+            s = {kind: si_sdr_db(r[i].reshape(-1)[:n].float().cpu().numpy(), ref) for kind, r in recon.items()}
+            diffs.append(s["kernel"] - s["plain"])
+            if not abs(diffs[-1]) <= CODEC_SDR_DB:
+                raise AssertionError(f"utterance {i}: SI-SDR kernel {s['kernel']} vs plain {s['plain']}")
+        total = sum(c.numel() for c in kernel_codes)
+        phase("codec-serve", f"one batch {tuple(x.shape)}, kernel path against plain path: "
+              f"{path_mismatch} of {total} codes differ ({len(path_gaps)} checked near ties; the "
+              f"rest follow an earlier stage's flip); reconstruction SI-SDR differences "
+              f"{', '.join(f'{v:+.4f}' for v in diffs)} dB, within {CODEC_SDR_DB}")
+
+        train_batch = next(iter(VaeLoader(root / "tr", batch_size=4, stacked=True, stride_alignment=8)))
+    net = VqVaeT3Tok(generator=torch.Generator().manual_seed(0)).to(device)
+    state = train_mod.TrainState.create(net, train_mod.nadam(1e-3), seed=0)
+
+    def stacked_loss(preds, targets):
+        return summed_squared_error(preds.reshape(preds.shape[0], -1, 1), targets)
+
+    ts, _ = train_mod.make_vae_steps(net, stacked_loss)
+    arrays = tuple(torch.from_numpy(a).to(device) for a in (train_batch.inputs, train_batch.targets))
+    fixed = [ts(state, *arrays)[1].item() for _ in range(8)]
+    if not (all(map(math.isfinite, fixed)) and fixed[-1] < fixed[0]):
+        raise AssertionError(f"8 t3tok steps on one batch did not lower the loss: {fixed}")
+    phase("codec-train", f"8 steps (nadam 1e-3) on one fixed batch: loss {fixed[0]:.1f} -> "
+          f"{fixed[-1]:.1f}")
+    del net, state, ts
+
+    # 17. timing: serving at 64 x 8 s, the train step at 8 x 8 s, the kernel alone
+    model.eval()
+    audio = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (CODEC_BATCH, frames, 40)).astype(np.float32) * 0.1).to(device)
+    audio_s = CODEC_BATCH * BENCH_SECONDS
+    with torch.inference_mode():
+        codes_k = model.codes(audio)
+        paths = {}
+        for kind in ("kernel", "plain"):
+            plain = kind == "plain"
+            paths[f"codes {kind}"] = lambda plain=plain: model.codes(audio, plain=plain)
+            paths[f"forward {kind}"] = lambda plain=plain: model(audio, deterministic=True, plain=plain)
+        paths["decode_codes"] = lambda: model.decode_codes(*codes_k)
+        times = {}
+        for order in (list(paths), list(reversed(paths))):
+            for what in order:
+                times.setdefault(what, []).append(cuda_ms(paths[what], iters=5))
+    serve_ms = {}
+    for what, vals in times.items():
+        serve_ms[what] = min(vals)
+        phase("codec-timing", f"t3tok {what}, {CODEC_BATCH} x {BENCH_SECONDS:.0f} s: "
+              f"{serve_ms[what]:.2f} ms/batch = {audio_s / (serve_ms[what] / 1e3):,.0f}x real time "
+              f"(runs {', '.join(f'{v:.2f}' for v in vals)} ms)")
+    train_audio = audio[:CODEC_TRAIN_BATCH]
+    targets = train_audio.reshape(CODEC_TRAIN_BATCH, -1, 1)
+    step_ms = {}
+    for kind in ("plain", "kernel", "kernel", "plain"):
+        net = cli._build_vae_model(cfg, device)
+        state = train_mod.TrainState.create(net, train_mod.nadam(1e-3), seed=0)
+        ts, _ = train_mod.make_vae_steps(net, stacked_loss, plain=kind == "plain")
+        step_ms.setdefault(kind, []).append(cuda_ms(lambda: ts(state, train_audio, targets), iters=5))
+    for kind, vals in step_ms.items():
+        ms = min(vals)
+        phase("codec-timing", f"t3tok train step {kind} path, {CODEC_TRAIN_BATCH} x "
+              f"{BENCH_SECONDS:.0f} s: {ms:.2f} ms/step = "
+              f"{CODEC_TRAIN_BATCH * BENCH_SECONDS / (ms / 1e3):,.0f} audio-s trained per s "
+              f"(runs {', '.join(f'{v:.2f}' for v in vals)} ms)")
+
+    kernel_ms = {}
+    for label in ("deep", "skip"):
+        n, d, k = shapes[label]
+        flat = torch.randn(n, d, generator=gen, device=device)
+        codebook = torch.randn(d, k, generator=gen, device=device)
+        runs = {"plain": [], "kernel": []}
+        for kind in ("plain", "kernel", "kernel", "plain"):
+            fn = nearest_code if kind == "kernel" else nearest_code_plain
+            runs[kind].append(device_ms(lambda: fn(flat, codebook), iters=50))
+        host = cuda_ms(lambda: nearest_code(flat, codebook), iters=50)
+        b = bound(4 * (n * d + d * k + n), 2 * n * d * k, FP32_FLOPS)
+        kernel_ms[label] = (min(runs["kernel"]), min(runs["plain"]), host, b)
+        phase("codec-timing", f"nearest_code {label} N={n} D={d} K={k}: kernel "
+              f"{kernel_ms[label][0] * 1e3:.1f} us on the device (bound {b['bound_ms'] * 1e3:.1f} us "
+              f"by {b['bound_by']}, {100 * b['bound_ms'] / kernel_ms[label][0]:.1f}%), "
+              f"{host * 1e3:.1f} us a call paced by the host, plain {kernel_ms[label][1] * 1e3:.1f} us "
+              f"(runs kernel {', '.join(f'{v * 1e3:.1f}' for v in runs['kernel'])}; plain "
+              f"{', '.join(f'{v * 1e3:.1f}' for v in runs['plain'])} us)")
+
+    deep, skip = kernel_ms["deep"], kernel_ms["skip"]
+    return {
+        "name": "nearest_code",
+        "route": "cuda",
+        "source": "speech_separation_tpu_torch/csrc/nearest_code.cu",
+        "replaces": "speech_separation_tpu/ops/vq_pallas.py:61",
+        "launches": launches,
+        "max_abs_err": max(gaps, default=0.0),  # float64 distance gap at a differing pick
+        "ms": deep[0],
+        "plain_ms": deep[1],
+        **deep[3],
+        # no single PyTorch call: torch.cdist then argmin is two, with the [N, K]
+        # distance matrix in device memory between them
+        "library_ms": None,
+        "mismatches": mismatches,
+        "ms_host_paced": deep[2],
+        "ms_skip": skip[0],
+        "plain_ms_skip": skip[1],
+        "bound_ms_skip": skip[3]["bound_ms"],
+        "launches_serving": serve_launches,
+        "launches_training": train_launches,
+    }
 
 
 def max_err(got, want) -> float:

@@ -62,6 +62,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    # flat, codebook, out, rows, dim, codes, stream
+    "sst_nearest_code": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

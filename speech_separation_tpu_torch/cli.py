@@ -1,25 +1,40 @@
 """Command line of the PyTorch port (counterpart of ``cli.py``).
 
-    python -m speech_separation_tpu_torch.cli train --workload upit \\
-        --config cfg.json --data-root D --epochs N --checkpoint-dir C [--resume] \\
-        [--device {cuda,cpu}]
+    python -m speech_separation_tpu_torch.cli train [--workload {upit,vqvae}] \\
+        [--variant V] --config cfg.json --data-root D [--batch-size N] --epochs N \\
+        --checkpoint-dir C [--resume] [--device {cuda,cpu}]
     python -m speech_separation_tpu_torch.cli separate --checkpoint-dir C \\
         --data-root D --split tt --out-dir O [--bf16] [--batch-size N] \\
         [--kernel {xla,pallas}] [--pad-quantum-seconds S] \\
         [--chunk-seconds S --chunk-overlap-seconds S] [--transfer-int16] \\
         [--device {cuda,cpu}]
+    python -m speech_separation_tpu_torch.cli codec-encode --checkpoint-dir C \\
+        --wav in.wav --out codes.npy|codes.npz [--device {cuda,cpu}]
+    python -m speech_separation_tpu_torch.cli codec-decode --checkpoint-dir C \\
+        --codes codes.npy|codes.npz --out out.wav [--device {cuda,cpu}]
+    python -m speech_separation_tpu_torch.cli codec-roundtrip --checkpoint-dir C \\
+        --wav in.wav --out out.wav [--device {cuda,cpu}]
 
-``train`` trains the config's ``variant`` from raw waveforms, writing
-``train_config.json``, ``metrics.jsonl`` and the best checkpoints to the
-checkpoint directory: the uPIT BLSTM (``blstm``) on the PIT loss of its
-masks, or Conv-TasNet (``tasnet``) wave to wave on the negative SI-SDR, with
-``tasnet_pallas_trunk`` running the TCN trunk's forward and backward in the
-training CUDA kernels (bf16). ``separate`` loads the best checkpoint: a
+``train`` trains the config's ``variant`` (``--variant`` overrides it) from
+raw waveforms, writing ``train_config.json``, ``metrics.jsonl`` and the best
+checkpoints to the checkpoint directory. ``--workload upit``: the uPIT BLSTM
+(``blstm``) on the PIT loss of its masks, or Conv-TasNet (``tasnet``) wave to
+wave on the negative SI-SDR, with ``tasnet_pallas_trunk`` running the TCN
+trunk's forward and backward in the training CUDA kernels (bf16).
+``--workload vqvae``: a VQ-VAE codec (``gumbel``, ``v2``, ``t2``, ``t3``,
+``t3tok``) on the summed squared error plus its auxiliary losses, NAdam for
+the t-series and Adam otherwise. ``separate`` loads the best checkpoint: a
 ``blstm`` checkpoint goes to ``separate_directory``; a ``tasnet`` checkpoint
 to the time-domain path, whole utterances or overlapped chunks, with
 ``--kernel pallas`` running the TCN trunk in the ``tcn_trunk`` CUDA kernel
 (bf16; the JAX flag's name) and ``--kernel xla`` the module's own forward.
-Both run on the GPU (``--device cuda``, the default), and exit with an error
+The codec commands serve a codec checkpoint: ``codec-encode`` writes the
+int32 codes (``.npz`` with ``deep`` and ``skip`` for t3tok; v2 has no code
+stream), ``codec-decode`` reconstructs from codes alone (gumbel and t3tok),
+``codec-roundtrip`` runs the deterministic forward; each prints one JSON
+line, with the codebooks' perplexity and usage for ``codec-encode``. Every
+nearest-code search runs in the ``nearest_code`` CUDA kernel. All of them
+run on the GPU (``--device cuda``, the default), and exit with an error
 where there is none; ``--device cpu`` runs them on the CPU, where every
 kernel takes its plain version. The other subcommands and options of the JAX
 CLI wait for later slices.
@@ -93,15 +108,114 @@ def _optimizer(cfg, steps_per_epoch: int):
     )
 
 
+def _build_vae_model(cfg, device: torch.device):
+    from .models import vqvae
+
+    generator = torch.Generator().manual_seed(cfg.seed)
+    if cfg.variant == "gumbel":
+        model = vqvae.VqVaeGumbel(latent_dim=cfg.latent_dim, generator=generator)
+    elif cfg.variant == "t3tok":
+        model = vqvae.VqVaeT3Tok(
+            embedding_dim=cfg.embedding_dim,
+            num_embeddings=cfg.num_embeddings,
+            skip_embeddings=cfg.skip_embeddings,
+            deep_depth=cfg.deep_depth,
+            skip_depth=cfg.skip_depth,
+            skip_pq=cfg.skip_pq,
+            generator=generator,
+        )
+    else:
+        cls = {"v2": vqvae.VqVaeCodebook, "t2": vqvae.VqVaeT2, "t3": vqvae.VqVaeT3}[cfg.variant]
+        model = cls(embedding_dim=cfg.embedding_dim, num_embeddings=cfg.num_embeddings,
+                    generator=generator)
+    return model.to(device)
+
+
+def _vae_optimizer(cfg):
+    """The JAX CLI's choice: NAdam for the t-series codecs, Adam otherwise."""
+    from . import train
+
+    if cfg.variant in ("t2", "t3", "t3tok"):
+        return train.nadam(cfg.learning_rate)
+    return train.adam(cfg.learning_rate)
+
+
+def _stride_alignment(variant: str) -> int:
+    """t3 and t3tok downsample 8x (three stride-2 levels), v2 and t2 4x."""
+    return 8 if variant in ("t3", "t3tok") else 4
+
+
+def _train_vae(args) -> None:
+    from . import train
+    from .data.datasets import VaeLoader
+    from .losses import summed_squared_error
+    from .utils import MetricsLogger, VaeTrainConfig, load_config, save_config
+
+    cfg = load_config(
+        VaeTrainConfig,
+        args.config,
+        dict(data_root=args.data_root, variant=args.variant, batch_size=args.batch_size,
+             epochs=args.epochs, checkpoint_dir=args.checkpoint_dir),
+    )
+    device = _device(args.device)
+    model = _build_vae_model(cfg, device)
+    stacked = cfg.variant != "gumbel"
+    if stacked:
+        def loss_fn(preds, targets):
+            return summed_squared_error(preds.reshape(preds.shape[0], -1, 1), targets)
+    else:
+        loss_fn = summed_squared_error
+    train_step, eval_step = train.make_vae_steps(model, loss_fn)
+    root = pathlib.Path(cfg.data_root)
+
+    def make_loader(split: str, shuffle: bool) -> VaeLoader:
+        return VaeLoader(
+            root / split,
+            source=cfg.source,
+            batch_size=cfg.batch_size,
+            sample_rate=cfg.sample_rate,
+            stacked=stacked,
+            stride_alignment=_stride_alignment(cfg.variant),
+            shuffle=shuffle,
+            seed=cfg.seed,
+        )
+
+    state = train.TrainState.create(model, _vae_optimizer(cfg), cfg.seed)
+    ckpt = train.CheckpointManager(cfg.checkpoint_dir)
+    save_config(cfg, pathlib.Path(cfg.checkpoint_dir) / "train_config.json")
+    logger = MetricsLogger(pathlib.Path(cfg.checkpoint_dir) / "metrics.jsonl")
+    result = train.fit(
+        state,
+        train_step,
+        eval_step,
+        make_loader(cfg.train_split, True),
+        make_loader(cfg.val_split, False),
+        lambda b: (b.inputs, b.targets),
+        epochs=cfg.epochs,
+        patience=cfg.patience,
+        checkpoints=ckpt,
+        resume=args.resume,
+        metrics=logger,
+    )
+    logger.close()
+    ckpt.close()
+    print(json.dumps({"best_val_loss": result.best_val_loss, "best_epoch": result.best_epoch,
+                      "device": str(device)}))
+
+
 def cmd_train(args) -> None:
     from . import train
     from .data.datasets import WaveformLoader
     from .utils import MetricsLogger, UPitTrainConfig, load_config, save_config
 
+    if args.workload == "vqvae":
+        _train_vae(args)
+        return
     cfg = load_config(
         UPitTrainConfig,
         args.config,
-        dict(data_root=args.data_root, epochs=args.epochs, checkpoint_dir=args.checkpoint_dir),
+        dict(data_root=args.data_root, variant=args.variant, batch_size=args.batch_size,
+             epochs=args.epochs, checkpoint_dir=args.checkpoint_dir),
     )
     if cfg.variant == "tasnet" and cfg.tasnet_causal and cfg.tasnet_pallas_trunk:
         raise SystemExit(
@@ -325,6 +439,130 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
     print(json.dumps({"written": written, "out_dir": str(out_dir), "device": str(device)}))
 
 
+def _stack_frames(wav, variant: str, frame_size: int = 40):
+    """A waveform in the codec's input layout: gumbel (sample-level) ``[1, T, 1]``
+    with T padded to a multiple of 32 (five stride-2 levels); the stacked
+    variants ``[1, K, frame_size]`` with K aligned to the stride depth."""
+    import numpy as np
+
+    if variant == "gumbel":
+        out = np.zeros((1, -(-len(wav) // 32) * 32, 1), np.float32)
+        out[0, : len(wav), 0] = wav
+        return out
+    alignment = _stride_alignment(variant)
+    k = -(-len(wav) // frame_size)
+    k = -(-k // alignment) * alignment
+    frames = np.zeros((1, k, frame_size), np.float32)
+    frames[0].reshape(-1)[: len(wav)] = wav
+    return frames
+
+
+def _restore_vae(checkpoint_dir: str, device: torch.device):
+    from . import train
+    from .utils import VaeTrainConfig, load_config
+
+    path = pathlib.Path(checkpoint_dir) / "train_config.json"
+    if not path.exists():
+        raise SystemExit(
+            f"error: no codec checkpoint at {checkpoint_dir} (missing {path.name}; "
+            "train one first)"
+        )
+    try:
+        cfg = load_config(VaeTrainConfig, path)
+    except ValueError as exc:
+        raise SystemExit(f"error: checkpoint at {checkpoint_dir} is not a codec checkpoint "
+                         f"({exc})") from exc
+    model = _build_vae_model(cfg, device)
+    state = train.TrainState.create(model, _vae_optimizer(cfg), cfg.seed)
+    train.CheckpointManager(checkpoint_dir).restore_params(state)
+    return cfg, model.eval()
+
+
+def cmd_codec_encode(args) -> None:
+    import numpy as np
+
+    from .data.audio_io import read_normalized
+    from .tokenizer import code_metrics
+
+    device = _device(args.device)
+    cfg, model = _restore_vae(args.checkpoint_dir, device)
+    if not hasattr(model, "codes"):
+        raise SystemExit(
+            f"error: the {cfg.variant!r} codec does not expose a code stream "
+            f"(its two VQ levels interleave mid-decoder); use gumbel, t2, t3 or t3tok"
+        )
+    wav = read_normalized(args.wav, cfg.sample_rate)
+    frames = torch.from_numpy(_stack_frames(wav, cfg.variant)).to(device)
+    with torch.inference_mode():
+        codes = model.codes(frames)
+    if cfg.variant == "t3tok":
+        deep, skip = (c.cpu().numpy().astype(np.int32) for c in codes)
+        np.savez(args.out, deep=deep, skip=skip)
+        report = {
+            "codes": str(args.out),
+            "deep_shape": list(deep.shape),
+            "skip_shape": list(skip.shape),
+            "samples": len(wav),
+            "deep": code_metrics(deep, cfg.num_embeddings),
+            "skip": code_metrics(skip, cfg.skip_embeddings),
+        }
+    else:
+        codes = codes.cpu().numpy().astype(np.int32)
+        np.save(args.out, codes)
+        vocab = cfg.latent_dim if cfg.variant == "gumbel" else cfg.num_embeddings
+        report = {
+            "codes": str(args.out),
+            "shape": list(codes.shape),
+            "samples": len(wav),
+            "codebook": code_metrics(codes, vocab),
+        }
+    print(json.dumps({**report, "device": str(device)}))
+
+
+def cmd_codec_decode(args) -> None:
+    """Decode saved codes back to a waveform: the self-contained codecs only,
+    ``gumbel`` (``codes.npy``) and ``t3tok`` (``codes.npz``, ``deep`` and
+    ``skip``). t2 and t3 carry a raw U-skip, so their codes alone cannot
+    reconstruct: ``codec-roundtrip`` serves them."""
+    import numpy as np
+
+    from .data.audio_io import audiowrite
+
+    device = _device(args.device)
+    cfg, model = _restore_vae(args.checkpoint_dir, device)
+    if cfg.variant == "t3tok":
+        with np.load(args.codes) as payload:
+            deep, skip = (torch.from_numpy(payload[k]).to(device) for k in ("deep", "skip"))
+        with torch.inference_mode():
+            wav = model.decode_codes(deep, skip)
+    elif cfg.variant == "gumbel":
+        with torch.inference_mode():
+            wav = model.decode_codes(torch.from_numpy(np.load(args.codes)).to(device))
+    else:
+        raise SystemExit(
+            f"codec-decode requires a self-contained codec ('gumbel' or 't3tok'); the "
+            f"{cfg.variant!r} hierarchy has a raw U-skip and needs codec-roundtrip"
+        )
+    out = wav.float().cpu().numpy().reshape(-1)
+    audiowrite(out, args.out, cfg.sample_rate, normalize=True)
+    print(json.dumps({"out": str(args.out), "samples": int(out.size), "device": str(device)}))
+
+
+def cmd_codec_roundtrip(args) -> None:
+    """Encode and decode a wav through the codec's deterministic forward."""
+    from .data.audio_io import audiowrite, read_normalized
+
+    device = _device(args.device)
+    cfg, model = _restore_vae(args.checkpoint_dir, device)
+    wav = read_normalized(args.wav, cfg.sample_rate)
+    frames = torch.from_numpy(_stack_frames(wav, cfg.variant)).to(device)
+    with torch.inference_mode():
+        recon, _ = model(frames, deterministic=True)
+    out = recon.float().cpu().numpy().reshape(-1)[: len(wav)]
+    audiowrite(out, args.out, cfg.sample_rate, normalize=True)
+    print(json.dumps({"out": str(args.out), "samples": int(len(wav)), "device": str(device)}))
+
+
 def _add_device(parser) -> None:
     parser.add_argument(
         "--device",
@@ -339,10 +577,12 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="speech_separation_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("train", help="train a separator")
+    p = sub.add_parser("train", help="train a separator or codec")
     p.add_argument("--config")
-    p.add_argument("--workload", default="upit", choices=["upit"])
+    p.add_argument("--workload", default="upit", choices=["upit", "vqvae"])
+    p.add_argument("--variant", default=None, help="overrides the config's variant")
     p.add_argument("--data-root")
+    p.add_argument("--batch-size", type=int)
     p.add_argument("--epochs", type=int)
     p.add_argument("--checkpoint-dir", default="./CKPT")
     p.add_argument("--resume", action="store_true", help="resume from latest checkpoint")
@@ -390,6 +630,18 @@ def main(argv=None) -> None:
     )
     _add_device(p)
     p.set_defaults(func=cmd_separate)
+
+    for name, func, helptext, src in (
+        ("codec-encode", cmd_codec_encode, "tokenise a wav with a trained VQ codec", "--wav"),
+        ("codec-decode", cmd_codec_decode, "codes → wav (gumbel or t3tok codec)", "--codes"),
+        ("codec-roundtrip", cmd_codec_roundtrip, "wav → codec → wav reconstruction", "--wav"),
+    ):
+        p = sub.add_parser(name, help=helptext)
+        p.add_argument("--checkpoint-dir", default="./CKPT")
+        p.add_argument(src, required=True)
+        p.add_argument("--out", required=True)
+        _add_device(p)
+        p.set_defaults(func=func)
 
     args = parser.parse_args(argv)
     args.func(args)

@@ -3,6 +3,8 @@
 - :class:`WaveformLoader` — mix + sources as raw waveforms from a wsj0-2mix
   style split dir, padded to buckets (next multiple of a pad quantum), with
   true ``sample_lengths`` and STFT ``frame_lengths`` beside them;
+- :class:`VaeLoader` — single-source batches for the VQ-VAE codecs,
+  sample-level ``[B, T, 1]`` or frame-stacked ``[B, K, L]``;
 - :func:`background_iterator` — decode ahead in a worker thread;
 - :func:`prefetch_to_device` — keep batches in flight on the device: pinned
   host memory and ``.to(device, non_blocking=True)``.
@@ -27,12 +29,14 @@ import numpy as np
 import torch
 
 from ..ops.stft import stft_frame_count
-from .audio_io import audioread, quantize_i16, wav_duration_samples
+from .audio_io import audioread, quantize_i16, read_normalized, wav_duration_samples
 from .features import resolve_mix_dirname, utterance_names
 
 __all__ = [
     "WaveformBatch",
     "WaveformLoader",
+    "VaeBatch",
+    "VaeLoader",
     "load_utterance_batch",
     "load_utterance_batch_i16",
     "background_iterator",
@@ -159,6 +163,84 @@ class WaveformLoader:
                 dtype=np.int32,
             )
             yield WaveformBatch(mix, sources, lengths, frame_lengths, names)
+
+
+class VaeBatch(NamedTuple):
+    inputs: np.ndarray  # [B, T, 1] or [B, K, L]
+    targets: np.ndarray  # [B, T, 1] waveform targets
+    lengths: np.ndarray  # [B] true waveform lengths
+    names: tuple[str, ...]
+
+
+@dataclass
+class VaeLoader:
+    """Single-source batches for the VQ-VAE codec family, peak-normalised
+    (``read_normalized``).
+
+    ``stacked=False``: sample-level ``[B, T, 1]``, the batch padded up to whole
+    seconds. ``stacked=True``: frame-stacked ``[B, K, L]``, each utterance's K
+    rounded up to a multiple of ``stride_alignment`` so the strided encoders
+    and decoders invert cleanly, and the batch's K up to a quantum of
+    ``pad_quantum_seconds`` (itself a multiple of the alignment). ``shuffle``
+    draws each epoch's order from ``default_rng(seed + epoch)``, the JAX
+    loader's order."""
+
+    split_dir: str | pathlib.Path
+    source: str = "s1"
+    batch_size: int = 2
+    sample_rate: int = 8000
+    stacked: bool = False
+    frame_size: int = 40
+    stride_alignment: int = 4
+    pad_quantum_seconds: float = 1.0
+    shuffle: bool = False
+    seed: int = 0
+    names: list[str] = field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        self.split_dir = pathlib.Path(self.split_dir)
+        if not self.names:
+            self.names = utterance_names(self.split_dir)
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the shuffle epoch (resume): the next order comes from
+        ``default_rng(seed + epoch)``."""
+        self._epoch = int(epoch)
+
+    def __len__(self) -> int:
+        return math.ceil(len(self.names) / self.batch_size)
+
+    def __iter__(self) -> Iterator[VaeBatch]:
+        order = np.arange(len(self.names))
+        if self.shuffle:
+            order = np.random.default_rng(self.seed + self._epoch).permutation(order)
+            self._epoch += 1
+        for start in range(0, len(order), self.batch_size):
+            names = tuple(self.names[i] for i in order[start : start + self.batch_size])
+            wavs = [read_normalized(self.split_dir / self.source / n, self.sample_rate)
+                    for n in names]
+            lengths = np.asarray([len(w) for w in wavs], dtype=np.int32)
+            if not self.stacked:
+                batch = np.zeros((len(wavs), _round_up(int(lengths.max()), self.sample_rate), 1),
+                                 dtype=np.float32)
+                for i, w in enumerate(wavs):
+                    batch[i, : len(w), 0] = w
+                yield VaeBatch(batch, batch, lengths, names)
+                continue
+            frame = self.frame_size
+            ks = [_round_up(math.ceil(len(w) / frame), self.stride_alignment) for w in wavs]
+            quantum = _round_up(max(1, int(self.pad_quantum_seconds * self.sample_rate / frame)),
+                                self.stride_alignment)
+            k_max = _round_up(max(ks), quantum)
+            inputs = np.zeros((len(wavs), k_max, frame), dtype=np.float32)
+            targets = np.zeros((len(wavs), k_max * frame, 1), dtype=np.float32)
+            for i, (w, k) in enumerate(zip(wavs, ks)):
+                padded = np.zeros(k * frame, dtype=np.float32)
+                padded[: len(w)] = w
+                inputs[i, :k] = padded.reshape(k, frame)
+                targets[i, : k * frame, 0] = padded
+            yield VaeBatch(inputs, targets, lengths, names)
 
 
 def background_iterator(iterator, depth: int = 2):

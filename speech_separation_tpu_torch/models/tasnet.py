@@ -31,7 +31,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ConvTasNet", "conv_transpose_same_padding", "encode", "decode", "depthwise"]
+__all__ = [
+    "ConvTasNet",
+    "conv_same",
+    "conv_same_pads",
+    "conv_transpose_pads",
+    "conv_transpose_same",
+    "encode",
+    "decode",
+    "depthwise",
+]
 
 _EPS = 1e-8
 
@@ -43,16 +52,50 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator) -> None:
         nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
-def conv_transpose_same_padding(win: int, stride: int) -> int:
-    """``padding`` of ``torch.conv_transpose1d`` (flipped kernel) that equals
-    ``lax.conv_transpose(..., padding="SAME")`` with the kernel as it is.
+def conv_same_pads(length: int, width: int, stride: int) -> tuple[int, int]:
+    """``(left, right)`` zero padding of ``lax.conv(..., padding="SAME")``:
+    ``ceil(length / stride)`` outputs, the padding's odd sample on the right
+    (width 4: ``(1, 2)`` at stride 1, ``(1, 1)`` at stride 2 on an even length)."""
+    out = -(-length // stride)
+    total = max((out - 1) * stride + width - length, 0)
+    return total // 2, total - total // 2
 
-    lax pads the stride-dilated input by ``ceil((win + stride - 2) / 2)`` on
-    the left (``win - 1`` where ``stride > win - 1``) and correlates with the
-    unflipped kernel; torch pads by ``win - 1 - padding`` and flips it."""
-    pad_len = win + stride - 2
-    pad_a = win - 1 if stride > win - 1 else -(-pad_len // 2)
-    return win - 1 - pad_a
+
+def conv_transpose_pads(width: int, stride: int) -> tuple[int, int]:
+    """``(left, right)`` padding of the stride-dilated input in
+    ``lax.conv_transpose(..., padding="SAME")``, which then correlates with
+    the unflipped kernel: ``width + stride - 2`` in all, ``ceil`` of half on
+    the left (``width - 1`` where ``stride > width - 1``). Width 4 gives
+    ``(2, 1)`` at stride 1 and ``(2, 2)`` at stride 2; Conv-TasNet's
+    ``stride = win / 2`` is symmetric."""
+    total = width + stride - 2
+    left = width - 1 if stride > width - 1 else -(-total // 2)
+    return left, total - left
+
+
+def conv_same(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """flax ``nn.Conv(padding="SAME")`` over channels-last ``x [B, T, in]``
+    with ``kernel [width, in, out]``: ``[B, ceil(T / stride), out]``."""
+    left, right = conv_same_pads(x.shape[1], kernel.shape[0], stride)
+    y = F.conv1d(F.pad(x.transpose(1, 2), (left, right)), kernel.permute(2, 1, 0), bias,
+                 stride=stride)
+    return y.transpose(1, 2)
+
+
+def conv_transpose_same(
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, stride: int = 1
+) -> torch.Tensor:
+    """flax ``nn.ConvTranspose(padding="SAME")`` (``transpose_kernel=False``)
+    over channels-first ``x [B, in, T]`` with ``kernel [width, in, out]``:
+    ``[B, out, T · stride]``. torch's transposed conv pads the dilated input by
+    ``width - 1 - padding`` on both sides, plus ``output_padding`` on the
+    right, and flips the kernel; the right side's surplus, where lax pads
+    less on the right than on the left, is trimmed."""
+    width = kernel.shape[0]
+    left, right = conv_transpose_pads(width, stride)
+    y = F.conv_transpose1d(x, kernel.flip(0).permute(1, 2, 0), bias, stride=stride,
+                           padding=width - 1 - left, output_padding=max(right - left, 0))
+    return y[..., : x.shape[-1] * stride]
 
 
 def encode(mix: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, win: int) -> torch.Tensor:
@@ -69,10 +112,7 @@ def decode(masked: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, win: 
     """flax's "SAME" ``ConvTranspose`` (``transpose_kernel=False``):
     ``[N, K, enc_dim]`` → ``[N, K · stride]``; ``kernel [win, enc_dim, 1]``.
     torch flips the kernel, so it gets the flipped one."""
-    stride = win // 2
-    y = F.conv_transpose1d(masked.transpose(1, 2), kernel.flip(0).permute(1, 2, 0), bias,
-                           stride=stride, padding=conv_transpose_same_padding(win, stride))
-    return y[:, 0]
+    return conv_transpose_same(masked.transpose(1, 2), kernel, bias, win // 2)[:, 0]
 
 
 def depthwise(y: torch.Tensor, kernel: torch.Tensor, dilation: int, causal: bool = False) -> torch.Tensor:

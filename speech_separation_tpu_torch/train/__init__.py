@@ -3,9 +3,9 @@ checkpoints and the epoch loop."""
 
 from .checkpoint import CheckpointManager
 from .loop import FitResult, fit
-from .optim import Adam, adam, cosine_adam, exponential_decay_adam
+from .optim import Adam, adam, cosine_adam, exponential_decay_adam, nadam
 from .state import TrainState
-from .steps import make_time_domain_steps, make_upit_waveform_steps
+from .steps import make_time_domain_steps, make_upit_waveform_steps, make_vae_steps
 
 __all__ = [
     "Adam",
@@ -18,4 +18,6 @@ __all__ = [
     "fit",
     "make_time_domain_steps",
     "make_upit_waveform_steps",
+    "make_vae_steps",
+    "nadam",
 ]

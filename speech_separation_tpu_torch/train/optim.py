@@ -3,9 +3,11 @@
 - uPIT models: Adam on an exponential-decay schedule — initial 1e-3, decay
   rate 0.96 every 20 steps, staircase (``uPIT_baseline.ipynb`` cell 27);
 - :func:`cosine_adam`: warmup plus cosine decay for corpus-scale runs;
-- :func:`adam`: a constant rate.
+- :func:`adam`: a constant rate;
+- :func:`nadam`: ``optax.nadam`` at a constant rate (the VQ-VAE codecs).
 
 :class:`Adam` computes what ``optax.chain(clip_by_global_norm(c), adam(s))``
+(or, ``nesterov=True``, ``optax.nadam``)
 computes, which differs from ``torch.optim.Adam`` and
 ``torch.nn.utils.clip_grad_norm_`` in three places: clipping scales by
 ``max_norm / norm`` with no ``1e-6`` added to the norm; the schedule is read
@@ -30,6 +32,7 @@ __all__ = [
     "exponential_decay",
     "warmup_cosine_decay",
     "adam",
+    "nadam",
     "exponential_decay_adam",
     "cosine_adam",
 ]
@@ -84,10 +87,12 @@ class Adam(torch.optim.Optimizer):
         b2: float = 0.999,
         eps: float = 1e-8,
         grad_clip_norm: float = 0.0,
+        nesterov: bool = False,
     ):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps, count=0))
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
+        self.nesterov = nesterov
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -105,6 +110,7 @@ class Adam(torch.optim.Optimizer):
             # bias corrections in float32, as optax computes them: 1 - 0.999**1
             # is 1.3e-5 away from its float64 value once 0.999 is rounded
             c1, c2 = (float(np.float32(1) - np.float32(b) ** (count + 1)) for b in (b1, b2))
+            c1_next = float(np.float32(1) - np.float32(b1) ** (count + 2))
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -119,7 +125,13 @@ class Adam(torch.optim.Optimizer):
                 mu, nu = state["mu"], state["nu"]
                 mu.mul_(b1).add_((1.0 - b1) * g)
                 nu.mul_(b2).add_((1.0 - b2) * (g * g))
-                update = (mu / c1) / (torch.sqrt(nu / c2) + eps)
+                if self.nesterov:
+                    # optax's scale_by_adam(nesterov=True): the moment corrected
+                    # one step ahead, blended with the corrected gradient
+                    mu_hat = b1 * (mu / c1_next) + (1.0 - b1) * (g / c1)
+                else:
+                    mu_hat = mu / c1
+                update = mu_hat / (torch.sqrt(nu / c2) + eps)
                 p.add_(update * -lr)
             group["count"] = count + 1
 
@@ -127,6 +139,13 @@ class Adam(torch.optim.Optimizer):
 def adam(learning_rate: float = 1e-4, grad_clip_norm: float = 0.0):
     return functools.partial(
         Adam, schedule=lambda count: learning_rate, grad_clip_norm=grad_clip_norm
+    )
+
+
+def nadam(learning_rate: float = 1e-3, grad_clip_norm: float = 0.0):
+    """``optax.nadam``: Adam with Nesterov momentum (the codecs t2, t3, t3tok)."""
+    return functools.partial(
+        Adam, schedule=lambda count: learning_rate, grad_clip_norm=grad_clip_norm, nesterov=True
     )
 
 

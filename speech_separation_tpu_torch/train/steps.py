@@ -7,6 +7,9 @@ PSM features → ``UPitBlstm`` training forward (the BiLSTM training kernels)
 Conv-TasNet wave to wave on the negative permutation-best SI-SDR, through the
 module's own autograd or, with ``pallas_trunk=True``, through the TCN trunk's
 training kernels (``models/tasnet_serving.py::train_apply``).
+:func:`make_vae_steps` trains the VQ-VAE codecs on their reconstruction loss
+plus their auxiliary losses, every nearest-code search in the
+``nearest_code`` kernel.
 """
 
 from __future__ import annotations
@@ -16,11 +19,12 @@ from typing import Callable
 import torch
 
 from ..losses.pit import pit_loss, pit_si_sdr_loss
+from ..losses.sisdr import summed_squared_error
 from ..ops.features import psm_features
 from ..ops.quant import dequant_i16
 from .state import TrainState
 
-__all__ = ["make_upit_waveform_steps", "make_time_domain_steps"]
+__all__ = ["make_upit_waveform_steps", "make_time_domain_steps", "make_vae_steps"]
 
 
 def make_upit_waveform_steps(
@@ -118,5 +122,44 @@ def make_time_domain_steps(
     @torch.no_grad()
     def eval_step(state: TrainState, mix, sources, sample_lengths):
         return _loss(mix, sources, sample_lengths)
+
+    return train_step, eval_step
+
+
+def make_vae_steps(
+    model,
+    loss_fn: Callable = summed_squared_error,
+    schedule: Callable[[int], dict] | None = None,
+    plain: bool = False,
+) -> tuple[Callable, Callable]:
+    """``(train_step, eval_step)`` for the VQ-VAE codecs over ``(state,
+    inputs, targets)``: the reconstruction loss plus the model's own auxiliary
+    losses (KL, or commitment and codebook), ``loss + sum(aux)``.
+
+    ``train_step`` returns ``(state, loss, recon)`` and updates ``state`` in
+    place; ``eval_step`` returns ``(loss, recon, preds)`` from the
+    deterministic forward. ``schedule(step)`` gives extra model keyword
+    arguments (the Gumbel codec's ``temperature`` and ``kl_scale``) for the
+    training forward only. The Gumbel noise comes from the state's generator.
+    ``plain=True`` runs the nearest-code search's plain version."""
+
+    def _loss(inputs, targets, generator, deterministic, extra=None):
+        kwargs = dict(deterministic=deterministic, generator=generator, plain=plain)
+        if extra:
+            kwargs.update(extra)
+        preds, aux_losses = model(inputs, **kwargs)
+        recon = loss_fn(preds, targets)
+        return recon + sum(aux_losses), recon, preds
+
+    def train_step(state: TrainState, inputs, targets):
+        state.optimizer.zero_grad(set_to_none=True)
+        extra = schedule(state.step) if schedule is not None else None
+        loss, recon, _ = _loss(inputs, targets, state.generator, False, extra)
+        loss.backward()
+        return state.apply_gradients(), loss.detach(), recon.detach()
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, inputs, targets):
+        return _loss(inputs, targets, None, True)
 
     return train_step, eval_step

@@ -1,6 +1,13 @@
 """Configuration and run logging (counterpart of ``utils/``)."""
 
-from .config import MeshConfig, StftConfig, UPitTrainConfig, load_config, save_config
+from .config import (
+    MeshConfig,
+    StftConfig,
+    UPitTrainConfig,
+    VaeTrainConfig,
+    load_config,
+    save_config,
+)
 from .profiling import MetricsLogger
 
 __all__ = [
@@ -8,6 +15,7 @@ __all__ = [
     "MetricsLogger",
     "StftConfig",
     "UPitTrainConfig",
+    "VaeTrainConfig",
     "load_config",
     "save_config",
 ]

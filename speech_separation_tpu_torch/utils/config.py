@@ -9,6 +9,10 @@ port does not serve yet raise ``ValueError`` when set, rather than being
 ignored: ``variant="conv"``, ``pack``, ``dynamic_mix``, and a mesh of more
 than one device. ``blstm_pallas_scan`` is accepted and has no effect: on a GPU
 the port always runs its BiLSTM training kernels.
+
+:class:`VaeTrainConfig` is the codecs' config, the JAX dataclass's fields and
+defaults; every variant (``gumbel``, ``v2``, ``t2``, ``t3``, ``t3tok``) is
+trained and served.
 """
 
 from __future__ import annotations
@@ -19,7 +23,14 @@ import pathlib
 from dataclasses import dataclass, field
 from typing import Any
 
-__all__ = ["StftConfig", "MeshConfig", "UPitTrainConfig", "load_config", "save_config"]
+__all__ = [
+    "StftConfig",
+    "MeshConfig",
+    "UPitTrainConfig",
+    "VaeTrainConfig",
+    "load_config",
+    "save_config",
+]
 
 
 @dataclass(frozen=True)
@@ -92,6 +103,37 @@ class UPitTrainConfig:
             raise ValueError(
                 "UPitTrainConfig: not served by the PyTorch port yet: " + "; ".join(unserved)
             )
+
+
+VAE_VARIANTS = ("gumbel", "v2", "t2", "t3", "t3tok")
+
+
+@dataclass(frozen=True)
+class VaeTrainConfig:
+    data_root: str = "./mycode/wsj0_2mix/use_this"
+    train_split: str = "tr"
+    val_split: str = "cv"
+    variant: str = "t3"  # gumbel | v2 | t2 | t3 | t3tok
+    source: str = "s1"
+    batch_size: int = 2
+    epochs: int = 5
+    patience: int = 50
+    latent_dim: int = 1024  # gumbel variant
+    embedding_dim: int = 64
+    num_embeddings: int = 512
+    skip_embeddings: int = 512  # t3tok variant: second VQ over the U-skip
+    deep_depth: int = 2  # t3tok: residual-VQ stages on the bottleneck
+    skip_depth: int = 2  # t3tok: residual-VQ stages on the skip
+    skip_pq: int = 2  # t3tok: product-quantization sub-vectors per skip stage
+    learning_rate: float = 1e-3
+    checkpoint_dir: str = "./CKPT"
+    seed: int = 42
+    sample_rate: int = 8000
+
+    def __post_init__(self) -> None:
+        if self.variant not in VAE_VARIANTS:
+            raise ValueError(f"VaeTrainConfig: unknown variant {self.variant!r} "
+                             f"(one of {', '.join(VAE_VARIANTS)})")
 
 
 _NESTED = {"StftConfig": StftConfig, "MeshConfig": MeshConfig}

@@ -3,7 +3,9 @@
 The port's modules keep the flax names and layouts (``UPitBlstm``: stacked
 BiLSTM ``cells`` with a leading direction axis of 2, ``Dense`` kernels ``[in,
 out]``; ``ConvTasNet``: Conv kernels ``[width, in/groups, out]``,
-ConvTranspose ``[win, in, out]``), so the conversion is a rename both ways:
+ConvTranspose ``[win, in, out]``; the VQ-VAE codecs: Conv and ConvTranspose
+``[width, in, out]``, codebooks ``[D, K]`` and residual VQ ``[depth, pq,
+D/pq, K]``), so the conversion is a rename both ways:
 the nested path joined with dots, and a dotted name split back into nested
 dicts. Pass and receive trees as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``); this module imports no JAX.
@@ -24,6 +26,9 @@ __all__ = [
     "upit_blstm_params",
     "convtasnet_state_dict",
     "convtasnet_params",
+    "vqvae_state_dict",
+    "vqvae_params",
+    "load_params_npz",
 ]
 
 
@@ -61,6 +66,14 @@ def params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return tree
 
 
-# models.upit.UPitBlstm and models.tasnet.ConvTasNet: the same rename
-upit_blstm_state_dict = convtasnet_state_dict = state_dict_from_params
-upit_blstm_params = convtasnet_params = params_from_state_dict
+def load_params_npz(path) -> dict[str, torch.Tensor]:
+    """State dict from an ``.npz`` of flax parameter paths joined by dots
+    (``scripts/export_vae_params.py`` writes one), read with numpy alone."""
+    with np.load(path) as payload:
+        return flatten_params({name: payload[name] for name in payload.files})
+
+
+# models.upit.UPitBlstm, models.tasnet.ConvTasNet and the models.vqvae codecs
+# (the residual VQ embeddings stay one 4-D tensor): the same rename
+upit_blstm_state_dict = convtasnet_state_dict = vqvae_state_dict = state_dict_from_params
+upit_blstm_params = convtasnet_params = vqvae_params = params_from_state_dict

@@ -25,6 +25,8 @@ from speech_separation_tpu_torch.ops.lstm_train_cuda import (
     lstm_train_forward_plain,
 )
 from speech_separation_tpu_torch.models.tasnet import ConvTasNet
+from speech_separation_tpu_torch.models.vq import ResidualVectorQuantizer, VectorQuantizer
+from speech_separation_tpu_torch.models.vqvae import VqVaeT3Tok
 from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply
 from speech_separation_tpu_torch.ops.stft import stft
 from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
@@ -41,6 +43,7 @@ from speech_separation_tpu_torch.ops.tcn_train_cuda import (
     tcn_train_forward_plain,
     tcn_trunk_train,
 )
+from speech_separation_tpu_torch.ops.vq_cuda import nearest_code, nearest_code_plain
 from speech_separation_tpu_torch.separate.pipeline import make_separate_fn
 
 pytestmark = pytest.mark.cuda
@@ -64,6 +67,11 @@ GRAD_REL = 1e-4  # relative L2 of bilstm_train's fp32 gradients against autograd
 # the largest |skip| (at least 1).
 TRUNK_BF16_REL = 3e-2
 SERVE_KERNEL_DB = 30.0  # cuda_apply, kernel trunk against plain trunk, both bf16
+# The nearest-code kernel against its plain version (cuBLAS fp32, TF32 off):
+# both fp32, dot products summed in another order, so a pick may differ only
+# where the two codes' float64 distances are within 1e-5 of ‖x‖² + ‖e‖²; on
+# inputs exact in fp32 (multiples of 1/32) every index is equal.
+NEAR_TIE_REL = 1e-5
 
 
 @pytest.fixture
@@ -385,3 +393,83 @@ def test_tcn_train_kernels_raise(cuda_device):
         tcn_train_backward(h0[:, :-1], hb, st, we, wdw, wcat, vecs, dils=dils)
     with pytest.raises(ValueError, match="tensors on"):
         tcn_train_backward(h0, hb, st.cpu(), we, wdw, wcat, vecs, dils=dils)
+
+
+def _near_tie_rows(flat, codebook, got, want):
+    """Rows where ``got`` and ``want`` differ, each asserted to be a near tie."""
+    rows = (got != want).nonzero().flatten().cpu()
+    x, e = flat.double().cpu(), codebook.double().cpu()
+    for i in rows.tolist():
+        da = ((x[i] - e[:, int(got[i])]) ** 2).sum().item()
+        db = ((x[i] - e[:, int(want[i])]) ** 2).sum().item()
+        scale = (x[i] ** 2).sum().item() + (e**2).sum(0).max().item()
+        assert abs(da - db) <= NEAR_TIE_REL * scale, (i, da, db)
+    return rows
+
+
+@pytest.mark.parametrize("n,d,k", [(12800, 64, 512), (51200, 16, 512), (12803, 13, 509),
+                                   (5, 64, 3), (700, 256, 130)])
+def test_nearest_code_kernel_matches_plain(cuda_device, n, d, k):
+    flat = _normal((n, d), seed=100).to(cuda_device)
+    codebook = _normal((d, k), seed=101).to(cuda_device)
+    before = nearest_code.launches
+    got = nearest_code(flat, codebook)
+    torch.cuda.synchronize()
+    assert nearest_code.launches == before + 1
+    want = nearest_code_plain(flat, codebook)
+    assert got.dtype == want.dtype == torch.int32 and got.shape == (n,)
+    assert len(_near_tie_rows(flat, codebook, got, want)) <= max(1, n // 1000)
+    # exact inputs: every score is exact in fp32, so every index is equal
+    exact_x = (torch.round(flat * 8).clamp(-32, 32) / 32).contiguous()
+    exact_cb = (torch.round(codebook * 8).clamp(-32, 32) / 32).contiguous()
+    assert torch.equal(nearest_code(exact_x, exact_cb), nearest_code_plain(exact_x, exact_cb))
+
+
+def test_nearest_code_kernel_ties_pick_the_lowest_index(cuda_device):
+    codebook = _normal((16, 40), seed=102).to(cuda_device)
+    codebook = torch.cat([codebook, codebook, codebook[:, :5]], dim=1).contiguous()  # 85 codes
+    flat = codebook[:, [3, 7, 45, 60, 82]].T.contiguous()
+    got = nearest_code(flat, codebook)
+    assert got.tolist() == [3, 7, 5, 20, 2]
+    assert torch.equal(got, nearest_code_plain(flat, codebook))
+
+
+def test_nearest_code_kernel_raises(cuda_device):
+    flat = _normal((10, 16), seed=103).to(cuda_device)
+    codebook = _normal((16, 20), seed=104).to(cuda_device)
+    with pytest.raises(ValueError, match="unsupported devices"):
+        nearest_code(flat, codebook.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        nearest_code(flat.double(), codebook.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        nearest_code(flat, codebook.T.contiguous().T)
+    with pytest.raises(ValueError, match="expected flat"):
+        nearest_code(flat, codebook[:8].contiguous())
+    with pytest.raises(ValueError, match="D <= 256"):
+        nearest_code(_normal((4, 300), 0).to(cuda_device), _normal((300, 8), 1).to(cuda_device))
+    assert nearest_code(flat[:0], codebook).shape == (0,)
+
+
+def test_vector_quantizers_on_the_card_launch_the_kernel(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    vq = VectorQuantizer(64, 16, init_scale=1.0, generator=gen).to(cuda_device)
+    rvq = ResidualVectorQuantizer(32, 16, depth=2, pq=4, generator=gen).to(cuda_device)
+    x = _normal((3, 50, 16), seed=105).to(cuda_device)
+    for layer, launches in ((vq, 1), (rvq, 8)):
+        before = nearest_code.launches
+        with torch.no_grad():
+            out, aux = layer(x)
+            want, want_aux = layer(x, plain=True)
+        torch.cuda.synchronize()
+        assert nearest_code.launches == before + launches
+        assert (out - want).abs().max().item() <= 1e-6
+        assert abs(aux.item() - want_aux.item()) <= 1e-6 * max(1.0, abs(want_aux.item()))
+    model = VqVaeT3Tok(embedding_dim=16, num_embeddings=32, skip_embeddings=32, skip_pq=4,
+                       generator=gen).to(cuda_device).eval()
+    frames = (0.3 * _normal((2, 64, 40), seed=106)).to(cuda_device)
+    before = nearest_code.launches
+    with torch.no_grad():
+        deep, skip = model.codes(frames)
+        plain = model.codes(frames, plain=True)
+    assert nearest_code.launches == before + 2 + 2 * 4  # 2 deep stages, 2 skip stages x pq 4
+    assert torch.equal(deep, plain[0]) and torch.equal(skip, plain[1])
