@@ -12,19 +12,25 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 2. build  — compiles ``speech_separation_tpu_torch/csrc/*.cu`` with nvcc for
    sm_90a into the package's ``.kernel_build/`` (one nvcc per source, together);
 3. kernels against their plain PyTorch versions on the card: the STFT
-   analysis kernel at (16, 64000) fp32, and the LSTM recurrence at full width
-   (H=496, B=16, T=501, both directions) in fp32 and bf16;
+   analysis kernel (a real FFT) at (16, 64000) fp32 at size 256 with fading
+   and at size 1024 without, against the matmul plain version, the
+   ``torch.fft`` oracle and ``stft_fft_plain`` (the kernel's algorithm in
+   PyTorch), the result a view of the kernel's buffer; and the LSTM
+   recurrence at full width (H=496, B=16, T=501, both directions) in fp32
+   and bf16;
 4. serving path — ``separate_directory`` over the ``tt`` split of a synthetic
    fixture with the full-width ``UPitBlstm`` (16,077,602 random parameters
    from seed 0), in fp32 and bf16, counting each kernel's launches; then the
    kernel path against the plain path on one padded batch;
 5. serving timing — the bench shape (256 utterances × 8 s at 8 kHz), kernel
    path and plain path in fp32 and bf16, each serving kernel alone against its
-   plain version;
+   plain version (the STFT also against ``torch.stft`` and its bound);
 6. training kernels against their plain versions at full width (H=496, B=16,
    T=501, both directions), fp32 and bf16, with and without a keep gate with
-   segment breaks: the forward's h, gates and c, the backward's dgates, and
-   ``bilstm_train``'s four gradients against autograd through a plain loop;
+   segment breaks: the forward's h, gates and c, the backward's dgates (and at
+   B=64, two row blocks of the persistent kernel), each backward rerun
+   bit-identical, and ``bilstm_train``'s four gradients against autograd
+   through a plain loop;
 7. training path — the port's ``cli train`` for 2 epochs on a synthetic
    fixture (tr 8, cv 4) at full width, fp32 and bf16, then ``cli separate
    --checkpoint-dir`` on ``tt``, counting each kernel's launches; the kernel
@@ -33,7 +39,10 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 8. training timing — ``bench_blstm_train``'s shape (32 utterances × 8 s,
    T=501): the train step, kernel path against plain path in fp32 and bf16,
    in audio-seconds trained per second, and each training kernel alone
-   against its plain version;
+   against its plain version, the backward also in microseconds a step;
+   cuDNN's bidirectional layer forward and backward, and ``bilstm_train``'s
+   whole backward (the kernel and its four gradient products: the work
+   cuDNN's backward does);
 9. the Conv-TasNet trunk kernel against its plain version at full width
    (B=4, cb 128, ch 256, 21 blocks, dilations 1 to 64) at K=8000 frames and
    at a ragged K=8003, weights from the full-width ``ConvTasNet``
@@ -90,8 +99,7 @@ Every kernel's entry in the kernels line carries its bound: the larger of its
 compulsory bytes (each input read once, each output written once) over 3.35
 TB/s and the operations its function needs over the peak for their type (989
 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32), NVIDIA's H100 SXM figures
-(for the STFT a real FFT's ~2.5 N log2 N per frame, not the dense DFT product
-the kernel computes; for the nearest-code search 2 N D K fp32 operations
+(for the STFT a real FFT's ~2.5 N log2 N per frame; for the nearest-code search 2 N D K fp32 operations
 against 4 (N D + D K + N) bytes); and the time of one PyTorch call computing
 the same function where there is one (``torch.stft``, cuDNN ``nn.LSTM``),
 used nowhere in the port.
@@ -113,7 +121,9 @@ import time
 SAMPLE_RATE = 8000
 BENCH_BATCH = 256
 BENCH_SECONDS = 8.0
-STFT_TOL = 1e-4  # fp32 FMA against cuBLAS fp32: both full fp32, sums in another order
+# the real FFT against the dense fp32 DFT (cuBLAS, TF32 off) and torch.fft:
+# all fp32, the sums taken in other orders (the JAX package's STFT bound)
+STFT_TOL = 1e-4
 LSTM_TOL = 1e-4  # fp32 kernel against the fp32 plain loop over 501 steps
 # bf16 operands (xw, U, and h before each product; 8-bit mantissa, ~4e-3
 # relative) with the fp32 carry, against the fp32 plain loop
@@ -225,7 +235,7 @@ def main() -> int:
     from speech_separation_tpu_torch.models.upit import UPitBlstm
     from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence, lstm_recurrence_plain
     from speech_separation_tpu_torch.ops.stft import stft, stft_frame_count
-    from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
+    from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda, stft_fft_plain
     from speech_separation_tpu_torch.separate.pipeline import (
         make_separate_fn,
         separate_directory,
@@ -250,14 +260,23 @@ def main() -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator(device=device).manual_seed(0)
     sig = torch.randn(16, 64000, generator=gen, device=device)
-    spec = stft_cuda(sig)
-    stft_err = (spec - stft(sig)).abs().max().item()
-    fft_err = (spec - stft(sig, method="fft")).abs().max().item()  # independent oracle
-    torch.cuda.synchronize()
-    if not max(stft_err, fft_err) <= STFT_TOL:
-        raise AssertionError(f"stft_cuda max abs err {stft_err} (fft oracle {fft_err}) > {STFT_TOL}")
-    phase("kernels", f"stft_analysis (16, 64000) fp32: max abs err {stft_err:.3e} against the "
-          f"plain matmul, {fft_err:.3e} against the fft oracle, <= {STFT_TOL}")
+    stft_err = 0.0
+    for size, fading in ((256, True), (1024, False)):
+        args = (sig, size, size // 2)
+        spec = stft_cuda(*args, fading=fading)
+        errs = {"matmul plain": stft(*args, fading=fading),
+                "torch.fft oracle": stft(*args, fading=fading, method="fft"),
+                "stft_fft_plain": stft_fft_plain(*args, fading=fading)}
+        errs = {what: (spec - want).abs().max().item() for what, want in errs.items()}
+        torch.cuda.synchronize()
+        is_view = spec._base is not None and spec._base.shape == (*spec.shape, 2)
+        if not (max(errs.values()) <= STFT_TOL and is_view):
+            raise AssertionError(f"stft_cuda size {size}: max abs err {errs} (<= {STFT_TOL}), "
+                                 f"a view of the kernel's buffer {is_view}")
+        stft_err = max(stft_err, errs["matmul plain"])
+        phase("kernels", f"stft_analysis (16, 64000) fp32 size {size} fading {fading}: max abs err "
+              + ", ".join(f"{v:.3e} against the {k}" for k, v in errs.items())
+              + f" <= {STFT_TOL}; the result is a view of the kernel's [B, F, bins, 2] buffer")
 
     model = UPitBlstm(generator=torch.Generator().manual_seed(0)).to(device).eval()
     n_params = sum(p.numel() for p in model.parameters())
@@ -355,8 +374,13 @@ def main() -> int:
     window = torch.blackman_window(256, periodic=False, device=device)
     stft_lib_ms = cuda_ms(lambda: torch.stft(sig, 256, 128, window=window, center=True,
                                              pad_mode="constant", return_complex=True), iters=20)
-    phase("timing", f"stft_analysis ({BENCH_BATCH}, {samples}) fp32: kernel {stft_ms:.3f} ms, "
-          f"plain {stft_plain_ms:.3f} ms, torch.stft (cuFFT) {stft_lib_ms:.3f} ms")
+    stft_frames = stft_frame_count(samples, 256, 128)
+    stft_bound = bound(4 * BENCH_BATCH * (samples + stft_frames * 258),
+                       BENCH_BATCH * stft_frames * (256 + 2.5 * 256 * math.log2(256)), FP32_FLOPS)
+    phase("timing", f"stft_analysis ({BENCH_BATCH}, {samples}) fp32: kernel {stft_ms:.4f} ms "
+          f"({100 * stft_bound['bound_ms'] / stft_ms:.1f}% of its {stft_bound['bound_ms']:.4f} ms "
+          f"bound by {stft_bound['bound_by']}), plain {stft_plain_ms:.3f} ms, torch.stft (cuFFT) "
+          f"{stft_lib_ms:.4f} ms")
     lstm_ms = {}
     xw = torch.randn(2, BENCH_BATCH, frames, 4 * hidden, generator=gen, device=device)
     with torch.inference_mode():
@@ -389,7 +413,6 @@ def main() -> int:
 
     d, h4 = 2, 4 * hidden
     lstm_bytes = 4 * (d * BENCH_BATCH * frames * h4 + d * hidden * h4 + BENCH_BATCH * frames * d * hidden)
-    stft_frames = stft_frame_count(samples, 256, 128)
 
     kernels = [
         {
@@ -402,8 +425,7 @@ def main() -> int:
             "ms": stft_ms,
             "plain_ms": stft_plain_ms,
             # the window's 256 products and a 256-point real FFT per frame
-            **bound(4 * BENCH_BATCH * (samples + stft_frames * 258),
-                    BENCH_BATCH * stft_frames * (256 + 2.5 * 256 * math.log2(256)), FP32_FLOPS),
+            **stft_bound,
             "library_ms": stft_lib_ms,
         },
         {
@@ -1301,20 +1323,42 @@ def training_phases(device, model, gen) -> list[dict]:
                 want_dg = lstm_train_backward_plain(gates, c_all, dy.to(dt), u, keep=k,
                                                     compute_dtype=dt)
                 got_dg = lstm_train_backward(gates, c_all, dy.to(dt), u, keep=k, compute_dtype=dt)
+                again = lstm_train_backward(gates, c_all, dy.to(dt), u, keep=k, compute_dtype=dt)
                 bwd_err, bwd_bound = max_err([got_dg], [want_dg]), TRAIN_TOL
                 if dt == torch.bfloat16:
                     fwd_bound, bwd_bound = bf16_bound(want), bf16_bound([want_dg])
                 torch.cuda.synchronize()
-                if not (fwd_err <= fwd_bound and bwd_err <= bwd_bound):
+                if not (fwd_err <= fwd_bound and bwd_err <= bwd_bound and torch.equal(got_dg, again)):
                     raise AssertionError(
                         f"training kernels {tag}{kname}: forward max abs err {fwd_err} "
-                        f"(bound {fwd_bound}), backward {bwd_err} (bound {bwd_bound})"
+                        f"(bound {fwd_bound}), backward {bwd_err} (bound {bwd_bound}), backward "
+                        f"rerun bit-identical {torch.equal(got_dg, again)}"
                     )
                 errs[tag + kname] = (fwd_err, bwd_err)
                 phase("train-kernels", f"{tag}{kname} H={hidden} B={batch} T={steps} D=2: "
                       f"forward (h, gates, c) max abs err {fwd_err:.3e} <= {fwd_bound:.3e}; "
                       f"backward dgates {bwd_err:.3e} <= {bwd_bound:.3e} "
-                      f"(max |dgates| {want_dg.float().abs().max().item():.3f})")
+                      f"(max |dgates| {want_dg.float().abs().max().item():.3f}), rerun bit-identical")
+        # B = 64: four groups of 16 rows, two to a block (124 blocks, one an SM)
+        xw64 = torch.randn(2, 64, steps, 4 * hidden, generator=gen, device=device)
+        dy64 = torch.randn(64, steps, 2 * hidden, generator=gen, device=device)
+        for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            _, gates, c_all = lstm_train_forward_plain(xw64, u, compute_dtype=dt)
+            before = lstm_train_backward.launches
+            got_dg = lstm_train_backward(gates, c_all, dy64.to(dt), u, compute_dtype=dt)
+            again = lstm_train_backward(gates, c_all, dy64.to(dt), u, compute_dtype=dt)
+            want_dg = lstm_train_backward_plain(gates, c_all, dy64.to(dt), u, compute_dtype=dt)
+            torch.cuda.synchronize()
+            err = max_err([got_dg], [want_dg])
+            lim = TRAIN_TOL if dt == torch.float32 else bf16_bound([want_dg])
+            launched = lstm_train_backward.launches - before
+            if not (err <= lim and torch.equal(got_dg, again) and launched == 2):
+                raise AssertionError(f"lstm_train_backward B=64 {tag}: max abs err {err} (bound "
+                                     f"{lim}), rerun bit-identical {torch.equal(got_dg, again)}, "
+                                     f"{launched} launches for 2 calls")
+            phase("train-kernels", f"lstm_train_backward {tag} H={hidden} B=64 T={steps} D=2: dgates "
+                  f"max abs err {err:.3e} <= {lim:.3e}, rerun bit-identical, one launch a call")
+        del xw64, dy64
 
     cells = model.bilstm_1.cells
     x = 0.5 * torch.randn(batch, steps, 2 * hidden, generator=gen, device=device)
@@ -1439,22 +1483,40 @@ def training_phases(device, model, gen) -> list[dict]:
             }
             for which, (k_ms, p_ms) in kernel_ms[tag].items():
                 phase("train-timing", f"lstm_train_{which} {tag} D=2 B={TRAIN_BATCH} T={frames} "
-                      f"H={hidden}: kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+                      f"H={hidden}: kernel {k_ms:.2f} ms ({1e3 * k_ms / frames:.2f} us a step), "
+                      f"plain {p_ms:.2f} ms")
+            phase("train-timing", f"lstm_train_backward {tag}: {1e3 * kernel_ms[tag]['backward'][0] / frames:.2f}"
+                  f" us a step in one persistent launch; train step {tag} kernel path "
+                  f"{min(step_ms[(tag, 'kernel')]):.1f} ms")
 
     # cuDNN's bidirectional layer in training mode at the same shape, fp32: its
     # forward (keeping what its backward needs) and its backward; both also
-    # cover the input projection, which the kernels' callers leave to cuBLAS
+    # cover the input projection, which the kernels' callers leave to cuBLAS.
+    # The same work as cuDNN's backward on the port's side is bilstm_train's
+    # whole backward: the kernel plus the dx, dkernel, drecurrent and dbias
+    # products; the two alternate, and each keeps its best of two captures.
     cudnn = torch.nn.LSTM(2 * hidden, hidden, batch_first=True, bidirectional=True).to(device)
     x_in = torch.randn(TRAIN_BATCH, frames, 2 * hidden, generator=gen, device=device,
                        requires_grad=True)
     lib_fwd_ms = cuda_ms(lambda: cudnn(x_in), iters=5)
     y_out = cudnn(x_in)[0]
     dy_out = torch.randn_like(y_out)
-    lib_bwd_ms = cuda_ms(lambda: torch.autograd.backward(y_out, dy_out, retain_graph=True), iters=5)
-    del cudnn, x_in, y_out, dy_out
+    layer = [t.detach().clone().requires_grad_()
+             for t in (x_in, cells.kernel, cells.recurrent_kernel, cells.bias)]
+    y_layer = bilstm_train(*layer, compute_dtype=torch.float32)
+    backward_ms = {}
+    for which in ("cudnn", "port", "port", "cudnn"):
+        y, g = (y_out, dy_out) if which == "cudnn" else (y_layer, dy_out)
+        backward_ms.setdefault(which, []).append(
+            cuda_ms(lambda: torch.autograd.backward(y, g, retain_graph=True), iters=5))
+    lib_bwd_ms, layer_bwd_ms = min(backward_ms["cudnn"]), min(backward_ms["port"])
+    del cudnn, x_in, y_out, dy_out, layer, y_layer
     phase("train-timing", f"cuDNN nn.LSTM fp32 bidirectional training B={TRAIN_BATCH} T={frames} "
           f"H={hidden} (input 2H, projection included): forward {lib_fwd_ms:.2f} ms, backward "
-          f"{lib_bwd_ms:.2f} ms")
+          f"{lib_bwd_ms:.2f} ms (runs {', '.join(f'{v:.2f}' for v in backward_ms['cudnn'])}); "
+          f"bilstm_train's whole backward, the same work (lstm_train_backward + dx, dkernel, "
+          f"drecurrent, dbias in cuBLAS): {layer_bwd_ms:.2f} ms "
+          f"(runs {', '.join(f'{v:.2f}' for v in backward_ms['port'])})")
     d, h4 = 2, 4 * hidden
     gates_bytes = 4 * d * TRAIN_BATCH * frames * h4
     c_bytes = 4 * d * TRAIN_BATCH * frames * hidden
@@ -1488,6 +1550,12 @@ def training_phases(device, model, gen) -> list[dict]:
             "max_abs_err_bf16_keep": errs["bf16+keep"][i],
             "ms_bf16": kernel_ms["bf16"][which][0],
             "plain_ms_bf16": kernel_ms["bf16"][which][1],
+            # library_ms (cuDNN's backward) also computes dx and the weight
+            # gradients; layer_backward_ms is the port's side of that work
+            **({"layer_backward_ms": layer_bwd_ms,
+                "us_per_step": 1e3 * kernel_ms["fp32"][which][0] / frames,
+                "us_per_step_bf16": 1e3 * kernel_ms["bf16"][which][0] / frames}
+               if which == "backward" else {}),
         })
     return entries
 

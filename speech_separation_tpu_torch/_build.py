@@ -38,16 +38,16 @@ BUILD_DIR = _PACKAGE / ".kernel_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # signal, basis, out, batch, samples, frames, size, shift, cols, stream
+    # signal, table, out, batch, samples, frames, size, shift, pad, stream
     "sst_stft_analysis": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # xw, u, h_a, h_b, c, out, dirs, batch, steps, hidden, reverse_mask, bf16, stream
     "sst_lstm_recurrence": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # xw, u, h_a, h_b, c, out, gates, c_all, keep, dirs, batch, steps, hidden,
     # reverse_mask, bf16, stream
     "sst_lstm_train_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # gates, c_all, dy, u, dc, keep, dgates, dirs, batch, steps, hidden,
-    # reverse_mask, bf16, stream
-    "sst_lstm_train_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # gates, c_all, dy, u, keep, dgates, counters, dirs, batch, steps, hidden,
+    # reverse_mask, bf16, groups, resident, stream
+    "sst_lstm_train_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # h, skip, t1, t2, part, we, wdw, wg, vecs, dils (host int array), batch,
     # frames, cb, ch, vdim, taps, blocks, stream
     "sst_tcn_trunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

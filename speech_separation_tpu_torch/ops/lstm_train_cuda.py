@@ -10,7 +10,8 @@ kernels:
   and the cell states as residuals: the training mode of
   ``csrc/lstm_recurrence.cu``;
 - :func:`lstm_train_backward` — backward through time, emitting the
-  pre-activation gate gradients: ``csrc/lstm_train_backward.cu``.
+  pre-activation gate gradients: ``csrc/lstm_train_backward.cu``, one
+  cooperative launch for all steps, tiled by :func:`backward_plan`.
 
 Each has a plain PyTorch version (a Python loop over time, the same
 roundings), which the wrapper takes only for a tensor on the CPU; on a CUDA
@@ -35,12 +36,18 @@ as in the reference: a 0 gates the (h, c) carry, and in the backward the
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from .. import _build
 from .lstm_cuda import _KERNEL_DTYPES, _check_shapes
 
 __all__ = [
+    "BackwardPlan",
+    "backward_plan",
+    "backward_smem_bytes",
     "bilstm_train",
     "bilstm_reference",
     "lstm_train_forward",
@@ -51,6 +58,85 @@ __all__ = [
 
 BIDIRECTIONAL = (False, True)  # direction 1 runs backwards in time
 REVERSE_MASK = 0b10  # the kernels' reverse_mask for BIDIRECTIONAL
+
+# The backward kernel's tiling (csrc/lstm_train_backward.cu): a block owns 16
+# hidden units of one direction for `groups` groups of 16 batch rows, and
+# stages dgates 256 columns at a time in fp32 (three buffers deep) and 1,024
+# in bf16 (one buffer, through registers); 256 threads, and one block an SM:
+# the launch bounds give the fp32 tile and the bf16 chunk the registers they
+# need. With 16 units a block every H <= 1024 fits 132 SMs: 2 x 64 unit
+# slices, each owning all of B's rows in at most 16 groups.
+BWD_ROWS, BWD_UNITS, BWD_MAX_GROUPS = 16, 16, 16
+BWD_CHUNK = {False: 256, True: 1024}  # by bf16
+BWD_BLOCKS_PER_SM = 1
+BWD_MAX_HIDDEN = 1024
+BWD_PARTIAL_BYTES = 8 * BWD_ROWS * BWD_UNITS * 4  # 8 warps' fp32 partial sums
+BWD_RESERVED_BYTES = 1024  # shared memory the card keeps back for each block
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """Launch plan of :func:`lstm_train_backward`'s persistent kernel."""
+
+    groups: int  # groups of 16 rows a block owns
+    resident: bool  # U's slice stays in shared memory (else streamed from L2)
+    smem: int  # dynamic shared memory a block, bytes (the kernel sizes its own)
+    unit_blocks: int
+    row_blocks: int
+    blocks_per_sm: int  # how many fit an SM by shared memory and registers
+
+    @property
+    def blocks(self) -> int:
+        return 2 * self.row_blocks * self.unit_blocks
+
+
+def backward_smem_bytes(hidden: int, bf16: bool, resident: bool) -> int:
+    """Dynamic shared memory of a block, as the kernel lays it out
+    (``smem_bytes`` in the .cu file), for choosing the plan: the warps'
+    partial sums, the staging buffers (three in fp32, one in bf16), each a
+    dgates chunk and, when U is streamed, a chunk of U; U's slice if resident."""
+    size, pad, buffers, chunk = (2, 8, 1, BWD_CHUNK[True]) if bf16 else (4, 8, 3, BWD_CHUNK[False])
+    columns = -(-4 * hidden // chunk) * chunk
+    buffer = BWD_ROWS * (chunk + pad) + (0 if resident else BWD_UNITS * (chunk + pad))
+    u_resident = BWD_UNITS * (columns + pad) if resident else 0
+    return BWD_PARTIAL_BYTES + size * (buffers * buffer + u_resident)
+
+
+def backward_plan(
+    batch: int, hidden: int, bf16: bool, *, sms: int, smem_optin: int, smem_per_sm: int
+) -> BackwardPlan:
+    """The first plan, U resident before streamed and fewest groups first, whose
+    grid (both directions) is resident on ``sms`` SMs at once; raises if none is."""
+    if not 1 <= batch <= BWD_ROWS * BWD_MAX_GROUPS or not 1 <= hidden <= BWD_MAX_HIDDEN:
+        raise ValueError(
+            f"lstm_train_backward: B={batch}, H={hidden} outside B in [1, "
+            f"{BWD_ROWS * BWD_MAX_GROUPS}], H in [1, {BWD_MAX_HIDDEN}]"
+        )
+    unit_blocks = -(-hidden // BWD_UNITS)
+    row_groups = -(-batch // BWD_ROWS)
+    for resident in (True,) if bf16 else (True, False):  # bf16 streams no U
+        smem = backward_smem_bytes(hidden, bf16, resident)
+        per_sm = min(BWD_BLOCKS_PER_SM, smem_per_sm // (smem + BWD_RESERVED_BYTES))
+        if smem > smem_optin or per_sm < 1:
+            continue
+        for groups in range(1, BWD_MAX_GROUPS + 1):
+            plan = BackwardPlan(groups, resident, smem, unit_blocks, -(-row_groups // groups), per_sm)
+            if plan.blocks <= sms * per_sm:
+                return plan
+    raise ValueError(
+        f"lstm_train_backward: no resident grid for B={batch}, H={hidden} on {sms} SMs "
+        f"with {smem_optin} bytes of shared memory a block"
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _device_limits(device: torch.device) -> dict:
+    props = torch.cuda.get_device_properties(device)
+    return {
+        "sms": props.multi_processor_count,
+        "smem_optin": props.shared_memory_per_block_optin,
+        "smem_per_sm": props.shared_memory_per_multiprocessor,
+    }
 
 
 def _scan_times(steps: int, s: int) -> list[int]:
@@ -249,18 +335,28 @@ def lstm_train_backward(
     recurrent = recurrent.to(dtype).contiguous()
     if keep is not None:
         keep = keep.to(torch.float32).contiguous()
-    dc = torch.zeros((dirs, batch, hidden), dtype=torch.float32, device=gates.device)
     dgates = torch.empty((dirs, batch, steps, four_h), dtype=dtype, device=gates.device)
+    if steps == 0 or batch == 0:
+        return dgates
+    plan = backward_plan(batch, hidden, dtype == torch.bfloat16, **_device_limits(gates.device))
+    _backward_launch(gates, c_all, dy, recurrent, keep, dgates, plan)
+    return dgates
+
+
+def _backward_launch(gates, c_all, dy, recurrent, keep, dgates, plan: BackwardPlan) -> None:
+    """One cooperative launch of the backward kernel on prepared tensors;
+    raises if the card refuses it (a grid that cannot be resident at once)."""
+    dirs, batch, steps, four_h = gates.shape
+    counters = torch.zeros((dirs, plan.row_blocks), dtype=torch.int32, device=gates.device)
     with torch.cuda.device(gates.device):
         code = _build.library().sst_lstm_train_backward(
             gates.data_ptr(), c_all.data_ptr(), dy.data_ptr(), recurrent.data_ptr(),
-            dc.data_ptr(), None if keep is None else keep.data_ptr(), dgates.data_ptr(),
-            dirs, batch, steps, hidden, REVERSE_MASK, int(dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            None if keep is None else keep.data_ptr(), dgates.data_ptr(), counters.data_ptr(),
+            dirs, batch, steps, four_h // 4, REVERSE_MASK, int(gates.dtype == torch.bfloat16),
+            plan.groups, int(plan.resident), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "lstm_train_backward")
     lstm_train_backward.launches += 1
-    return dgates
 
 
 lstm_train_backward.launches = 0

@@ -6,6 +6,7 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 """
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -17,6 +18,8 @@ from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
 from speech_separation_tpu_torch.models.upit import UPitBlstm
 from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence, lstm_recurrence_plain
 from speech_separation_tpu_torch.ops.lstm_train_cuda import (
+    _backward_launch,
+    backward_plan,
     bilstm_reference,
     bilstm_train,
     lstm_train_backward,
@@ -29,7 +32,7 @@ from speech_separation_tpu_torch.models.vq import ResidualVectorQuantizer, Vecto
 from speech_separation_tpu_torch.models.vqvae import VqVaeT3Tok
 from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply
 from speech_separation_tpu_torch.ops.stft import stft
-from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
+from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda, stft_fft_plain
 from speech_separation_tpu_torch.ops.tcn_cuda import (
     fold_canonical,
     tcn_trunk_cuda,
@@ -48,7 +51,7 @@ from speech_separation_tpu_torch.separate.pipeline import make_separate_fn
 
 pytestmark = pytest.mark.cuda
 
-STFT_ATOL = 1e-4  # fp32 FMA against cuBLAS fp32, sums in another order
+STFT_ATOL = 1e-4  # the real FFT against the fp32 DFT product and torch.fft, sums in other orders
 LSTM_ATOL = 1e-4  # fp32 kernel against the fp32 plain loop
 LSTM_BF16_ATOL = 3e-2  # bf16 operands, fp32 carry, against the fp32 plain loop
 PATH_REL = 1e-4  # relative L2 of the fp32 separation output
@@ -99,6 +102,31 @@ def test_stft_kernel_matches_plain(cuda_device, shape):
     assert (got - want).abs().max().item() <= STFT_ATOL
     # the FFT oracle is an independent computation of the same spectrum
     assert (got - stft(x, method="fft")).abs().max().item() <= STFT_ATOL
+
+
+@pytest.mark.parametrize("size", [64, 256, 1024])
+def test_stft_kernel_sizes_without_fading(cuda_device, size):
+    x = _normal((5, 20011), seed=15).to(cuda_device)
+    got = stft_cuda(x, size, size // 2, fading=False)
+    torch.cuda.synchronize()
+    # a view of the kernel's interleaved [B, F, bins, 2] buffer, not a copy
+    assert got._base is not None and got._base.dtype == torch.float32
+    assert got._base.shape == (*got.shape, 2) and got.data_ptr() == got._base.data_ptr()
+    for want in (stft(x, size, size // 2, fading=False),
+                 stft(x, size, size // 2, fading=False, method="fft"),
+                 stft_fft_plain(x, size, size // 2, fading=False)):
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= STFT_ATOL
+
+
+def test_stft_kernel_raises_on_other_sizes(cuda_device):
+    x = _normal((2, 4000), seed=16).to(cuda_device)
+    before = stft_cuda.launches
+    with pytest.raises(ValueError, match="size 320"):
+        stft_cuda(x, 320, 160)
+    with pytest.raises(ValueError, match="size 2048"):
+        stft_cuda(x, 2048, 1024)
+    assert stft_cuda.launches == before
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, LSTM_ATOL), (torch.bfloat16, LSTM_BF16_ATOL)])
@@ -174,6 +202,83 @@ def test_lstm_train_kernels_match_plain(cuda_device, keep, dtype, atol, batch, s
     assert (lstm_train_forward.launches, lstm_train_backward.launches) == (
         before[0] + 1, before[1] + 1,
     )
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, TRAIN_ATOL), (torch.bfloat16, TRAIN_BF16_ATOL)])
+@pytest.mark.parametrize("batch", [32, 64])  # the bench's rows; two row blocks
+def test_lstm_train_backward_full_width(cuda_device, dtype, atol, batch):
+    """The persistent kernel at H = 496, T = 64: one launch a call, reruns
+    bit-identical, within the plain version's bound."""
+    xw, u, _ = _train_inputs(2, batch, 64, 496, cuda_device, seed=17, keep=False)
+    _, gates, c_all = lstm_train_forward_plain(xw, u, compute_dtype=dtype)
+    dy = _normal((batch, 64, 2 * 496), seed=18).to(cuda_device).to(dtype)
+    before = lstm_train_backward.launches
+    got = lstm_train_backward(gates, c_all, dy, u, compute_dtype=dtype)
+    again = lstm_train_backward(gates, c_all, dy, u, compute_dtype=dtype)
+    want = lstm_train_backward_plain(gates, c_all, dy, u, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert lstm_train_backward.launches == before + 2
+    assert torch.equal(got, again)
+    bound = atol if dtype == torch.float32 else atol * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, TRAIN_ATOL), (torch.bfloat16, TRAIN_BF16_ATOL)])
+@pytest.mark.parametrize("batch,steps,hidden", [(5, 9, 21), (2, 7, 1), (256, 20, 1024), (256, 60, 496)])
+def test_lstm_train_backward_edge_shapes(cuda_device, keep, dtype, atol, batch, steps, hidden):
+    """Odd H (bf16 rows only 8-byte aligned), a single unit, and B = 256 at
+    the widest H and at the bench's: within the plain version's bound, and a
+    rerun bit-identical."""
+    xw, u, k = _train_inputs(2, batch, steps, hidden, cuda_device, seed=23, keep=keep)
+    _, gates, c_all = lstm_train_forward_plain(xw, u, keep=k, compute_dtype=dtype)
+    dy = _normal((batch, steps, 2 * hidden), seed=24).to(cuda_device).to(dtype)
+    got = lstm_train_backward(gates, c_all, dy, u, keep=k, compute_dtype=dtype)
+    again = lstm_train_backward(gates, c_all, dy, u, keep=k, compute_dtype=dtype)
+    want = lstm_train_backward_plain(gates, c_all, dy, u, keep=k, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    bound = atol if dtype == torch.float32 else atol * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, TRAIN_ATOL), (torch.bfloat16, TRAIN_BF16_ATOL)])
+def test_lstm_train_backward_widest_hidden(cuda_device, dtype, atol):
+    """H = 1024, the widest the plan takes: fp32 streams U's slice from L2
+    beside the dgates chunks; bf16 keeps it resident. B = 40: three groups of
+    16 rows a block, the last ragged."""
+    batch, steps, hidden = 40, 6, 1024
+    plan = backward_plan(batch, hidden, dtype == torch.bfloat16, sms=132, smem_optin=232448,
+                         smem_per_sm=233472)
+    assert plan.resident == (dtype == torch.bfloat16) and plan.groups == 3
+    xw, u, k = _train_inputs(2, batch, steps, hidden, cuda_device, seed=21, keep=True)
+    _, gates, c_all = lstm_train_forward_plain(xw, u, keep=k, compute_dtype=dtype)
+    dy = _normal((batch, steps, 2 * hidden), seed=22).to(cuda_device).to(dtype)
+    got = lstm_train_backward(gates, c_all, dy, u, keep=k, compute_dtype=dtype)
+    want = lstm_train_backward_plain(gates, c_all, dy, u, keep=k, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    bound = atol if dtype == torch.float32 else atol * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+def test_lstm_train_backward_refused_launch_raises(cuda_device):
+    batch, hidden = 256, 496
+    xw, u, _ = _train_inputs(2, batch, 3, hidden, cuda_device, seed=19, keep=False)
+    _, gates, c_all = lstm_train_forward_plain(xw, u)
+    dy = _normal((batch, 3, 2 * hidden), seed=20).to(cuda_device)
+    plan = backward_plan(batch, hidden, False, sms=132, smem_optin=232448, smem_per_sm=233472)
+    # one group a block: 2 x 16 x 31 blocks, more than the card holds at once
+    too_large = dataclasses.replace(plan, groups=1, row_blocks=16)
+    before = lstm_train_backward.launches
+    with pytest.raises(RuntimeError, match="lstm_train_backward: CUDA error"):
+        _backward_launch(gates, c_all, dy, u, None, torch.empty_like(gates), too_large)
+    assert lstm_train_backward.launches == before
+    wide = 1100  # above the kernel's H <= 1024
+    with pytest.raises(ValueError, match="H=1100"):
+        lstm_train_backward(torch.zeros(2, 2, 3, 4 * wide, device=cuda_device),
+                            torch.zeros(2, 2, 3, wide, device=cuda_device),
+                            torch.zeros(2, 3, 2 * wide, device=cuda_device),
+                            torch.zeros(2, wide, 4 * wide, device=cuda_device))
 
 
 @pytest.mark.parametrize("keep", [False, True])
