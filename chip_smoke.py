@@ -15,34 +15,40 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    analysis kernel (a real FFT) at (16, 64000) fp32 at size 256 with fading
    and at size 1024 without, against the matmul plain version, the
    ``torch.fft`` oracle and ``stft_fft_plain`` (the kernel's algorithm in
-   PyTorch), the result a view of the kernel's buffer; and the LSTM
-   recurrence at full width (H=496, B=16, T=501, both directions) in fp32
-   and bf16;
+   PyTorch), the result a view of the kernel's buffer; and the persistent
+   LSTM recurrence (T=501) at full width (H=496, both directions) at B=16,
+   at the serving batch B=256 and at B=300 (two row slices, two launches a
+   call), at a ragged B=3, H=20 and in one direction, in fp32 and bf16, each
+   against its plain loop and rerun bit-identical;
 4. serving path — ``separate_directory`` over the ``tt`` split of a synthetic
    fixture with the full-width ``UPitBlstm`` (16,077,602 random parameters
-   from seed 0), in fp32 and bf16, counting each kernel's launches; then the
-   kernel path against the plain path on one padded batch;
+   from seed 0), in fp32 and bf16, counting each kernel's launches (the LSTM
+   recurrence: one a call per row slice); then the kernel path against the
+   plain path on one padded batch;
 5. serving timing — the bench shape (256 utterances × 8 s at 8 kHz), kernel
    path and plain path in fp32 and bf16, each serving kernel alone against its
-   plain version (the STFT also against ``torch.stft`` and its bound);
+   plain version (the STFT also against ``torch.stft`` and its bound; the
+   LSTM in microseconds a step), and the port's BiLSTM layer forward (cuBLAS
+   projection + kernel) alternated with cuDNN's, which does the same work;
 6. training kernels against their plain versions at full width (H=496, B=16,
    T=501, both directions), fp32 and bf16, with and without a keep gate with
    segment breaks: the forward's h, gates and c, the backward's dgates (and at
-   B=64, two row blocks of the persistent kernel), each backward rerun
-   bit-identical, and ``bilstm_train``'s four gradients against autograd
-   through a plain loop;
+   B=64, two row blocks of the persistent kernel; the forward also at B=32,
+   B=64 and B=256), every rerun bit-identical, and ``bilstm_train``'s four
+   gradients against autograd through a plain loop;
 7. training path — the port's ``cli train`` for 2 epochs on a synthetic
    fixture (tr 8, cv 4) at full width, fp32 and bf16, then ``cli separate
-   --checkpoint-dir`` on ``tt``, counting each kernel's launches; the kernel
-   path's train step against the plain path's on one batch; 8 steps on one
-   fixed batch must lower the loss;
+   --checkpoint-dir`` on ``tt``, counting each kernel's launches (the forward
+   kernels: one a call per row slice); the kernel path's train step against
+   the plain path's on one batch; 8 steps on one fixed batch must lower the
+   loss;
 8. training timing — ``bench_blstm_train``'s shape (32 utterances × 8 s,
    T=501): the train step, kernel path against plain path in fp32 and bf16,
    in audio-seconds trained per second, and each training kernel alone
-   against its plain version, the backward also in microseconds a step;
-   cuDNN's bidirectional layer forward and backward, and ``bilstm_train``'s
-   whole backward (the kernel and its four gradient products: the work
-   cuDNN's backward does);
+   against its plain version, also in microseconds a step; cuDNN's
+   bidirectional layer forward and backward, each alternated with
+   ``bilstm_train``'s whole forward (projection and kernel) or whole backward
+   (the kernel and its four gradient products), the same work;
 9. the Conv-TasNet trunk kernel against its plain version at full width
    (B=4, cb 128, ch 256, 21 blocks, dilations 1 to 64) at K=8000 frames and
    at a ragged K=8003, weights from the full-width ``ConvTasNet``
@@ -110,6 +116,7 @@ The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -205,6 +212,26 @@ def smi_line() -> str:
     return out.splitlines()[0]
 
 
+@contextlib.contextmanager
+def counting_calls(module, name: str):
+    """Count the calls made through ``module.name`` while the block runs: the
+    name is bound to a counting wrapper and restored after. Rebind it only in
+    a module that calls the function, not the one that defines it (the
+    wrappers count their launches on their own module-level name). Yields the
+    count as a one-item list."""
+    fn, calls = getattr(module, name), [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean device milliseconds of ``fn()`` over ``iters`` calls, after ``warmup``."""
     import torch
@@ -232,8 +259,14 @@ def main() -> int:
     from speech_separation_tpu_torch.data.audio_io import read_wav
     from speech_separation_tpu_torch.data.datasets import WaveformLoader
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.models import blstm as blstm_module
+    from speech_separation_tpu_torch.models.blstm import BiLSTM
     from speech_separation_tpu_torch.models.upit import UPitBlstm
-    from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence, lstm_recurrence_plain
+    from speech_separation_tpu_torch.ops.lstm_cuda import (
+        lstm_recurrence,
+        lstm_recurrence_plain,
+        row_slices,
+    )
     from speech_separation_tpu_torch.ops.stft import stft, stft_frame_count
     from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda, stft_fft_plain
     from speech_separation_tpu_torch.separate.pipeline import (
@@ -284,22 +317,38 @@ def main() -> int:
         raise AssertionError(f"UPitBlstm has {n_params} params, expected 16,077,602")
     hidden = 496
     u = model.bilstm_0.cells.recurrent_kernel.detach()
-    xw = torch.randn(2, 16, 501, 4 * hidden, generator=gen, device=device)
     rev = (False, True)
-    with torch.inference_mode():
-        want = lstm_recurrence_plain(xw, u, reverse=rev)
-        lstm_err = (lstm_recurrence(xw, u, reverse=rev) - want).abs().max().item()
-        lstm_err_bf16 = (
-            lstm_recurrence(xw, u, reverse=rev, compute_dtype=torch.bfloat16).float() - want
-        ).abs().max().item()
-    torch.cuda.synchronize()
-    if not lstm_err <= LSTM_TOL:
-        raise AssertionError(f"lstm_recurrence fp32 max abs err {lstm_err} > {LSTM_TOL}")
-    if not lstm_err_bf16 <= LSTM_BF16_TOL:
-        raise AssertionError(f"lstm_recurrence bf16 max abs err {lstm_err_bf16} > {LSTM_BF16_TOL}")
-    phase("kernels", f"lstm_recurrence H=496 B=16 T=501 D=2: fp32 max abs err "
-          f"{lstm_err:.3e} <= {LSTM_TOL}; bf16 against fp32 plain {lstm_err_bf16:.3e} "
-          f"<= {LSTM_BF16_TOL} (bf16 operands, fp32 carry)")
+    # (D, B, H): the full width at B = 16, the serving batch, two row slices,
+    # a ragged B and H (rows not 16-byte aligned), one direction
+    lstm_err = {"fp32": 0.0, "bf16": 0.0}
+    for dirs, b, h in ((2, 16, hidden), (2, BENCH_BATCH, hidden), (2, 300, hidden), (2, 3, 20),
+                       (1, 16, hidden)):
+        w = (u[:dirs] if h == hidden
+             else torch.randn(dirs, h, 4 * h, generator=gen, device=device) / h**0.5)
+        xw = torch.randn(dirs, b, 501, 4 * h, generator=gen, device=device)
+        reverse = rev if dirs == 2 else (True,)
+        slices = len(row_slices(b))
+        for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            with torch.inference_mode():
+                want = lstm_recurrence_plain(xw, w, reverse=reverse, compute_dtype=dt)
+                before = lstm_recurrence.launches
+                got = lstm_recurrence(xw, w, reverse=reverse, compute_dtype=dt)
+                again = lstm_recurrence(xw, w, reverse=reverse, compute_dtype=dt)
+            torch.cuda.synchronize()
+            launched = lstm_recurrence.launches - before
+            err = max_err([got], [want])
+            lim = (LSTM_TOL if tag == "fp32"
+                   else LSTM_BF16_TOL * max(1.0, want.float().abs().max().item()))
+            if not (err <= lim and torch.equal(got, again) and launched == 2 * slices):
+                raise AssertionError(
+                    f"lstm_recurrence D={dirs} B={b} H={h} {tag}: max abs err {err} (bound "
+                    f"{lim}), rerun bit-identical {torch.equal(got, again)}, {launched} launches "
+                    f"for 2 calls of {slices} row slices")
+            lstm_err[tag] = max(lstm_err[tag], err)
+            phase("kernels", f"lstm_recurrence {tag} D={dirs} B={b} T=501 H={h}: max abs err "
+                  f"{err:.3e} <= {lim:.3e} against the {tag} plain loop, rerun bit-identical, "
+                  f"{launched // 2} launch(es) a call ({slices} row slice(s))")
+        del xw, want, got, again
 
     # 4. serving path: separate a directory at full width, fp32 and bf16
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -312,17 +361,22 @@ def main() -> int:
         stft_cuda.launches = 0
         lstm_recurrence.launches = 0
         t0 = time.perf_counter()
-        written = {
-            tag: separate_directory(
-                model, split, pathlib.Path(tmp) / f"sep_{tag}", batch_size=4, compute_dtype=dt
-            )
-            for tag, dt in runs.items()
-        }
+        with counting_calls(blstm_module, "lstm_recurrence") as calls:
+            written = {
+                tag: separate_directory(
+                    model, split, pathlib.Path(tmp) / f"sep_{tag}", batch_size=4, compute_dtype=dt
+                )
+                for tag, dt in runs.items()
+            }
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"stft_analysis": stft_cuda.launches, "lstm_recurrence": lstm_recurrence.launches}
         if min(launches.values()) <= 0:
             raise AssertionError(f"a kernel of the serving path never launched: {launches}")
+        # batches of 4 are one row slice each: one launch a call
+        if launches["lstm_recurrence"] != calls[0]:
+            raise AssertionError(f"lstm_recurrence: {launches['lstm_recurrence']} launches for "
+                                 f"{calls[0]} calls of one row slice each")
         for tag, paths in written.items():
             if len(paths) != 2 * len(names) or not all(p.exists() for p in paths):
                 raise AssertionError(f"{tag}: wrote {len(paths)} wavs for {len(names)} mixtures")
@@ -335,7 +389,8 @@ def main() -> int:
                         raise AssertionError(f"{tag}: {n} s{s} has {len(est)} samples")
         phase("serve", f"separate_directory tt ({len(names)} mixtures, UPitBlstm "
               f"{n_params:,} params) fp32 + bf16: {sum(map(len, written.values()))} wavs "
-              f"in {seconds:.2f} s; launches {launches}")
+              f"in {seconds:.2f} s; launches {launches}, lstm_recurrence one a call "
+              f"({calls[0]} calls)")
 
         batch = next(iter(WaveformLoader(split, batch_size=4)))
         mix = torch.from_numpy(batch.mix).to(device)
@@ -391,16 +446,27 @@ def main() -> int:
                 cuda_ms(lambda: lstm_recurrence_plain(x, w, reverse=rev), iters=5),
             )
             phase("timing", f"lstm_recurrence {tag} D=2 B={BENCH_BATCH} T={frames} H={hidden}: "
-                  f"kernel {lstm_ms[tag][0]:.2f} ms, plain {lstm_ms[tag][1]:.2f} ms")
+                  f"kernel {lstm_ms[tag][0]:.3f} ms ({1e3 * lstm_ms[tag][0] / frames:.2f} us a "
+                  f"step, one persistent launch), plain {lstm_ms[tag][1]:.2f} ms")
         # cuDNN's bidirectional layer at the same shape, fp32; it also computes
         # the input projection x @ W (input 2H, the model's layers 2 and 3),
-        # which the kernel's caller leaves to cuBLAS
+        # which the kernel's caller leaves to cuBLAS: the same work on the
+        # port's side is the BiLSTM layer's forward (projection + kernel). The
+        # two alternate, and each keeps its best of two captures.
         cudnn = torch.nn.LSTM(2 * hidden, hidden, batch_first=True, bidirectional=True).to(device)
+        layer = BiLSTM(2 * hidden, hidden, generator=torch.Generator().manual_seed(1)).to(device)
         x_in = torch.randn(BENCH_BATCH, frames, 2 * hidden, generator=gen, device=device)
-        lstm_lib_ms = cuda_ms(lambda: cudnn(x_in), iters=5)
-        del cudnn, x_in
+        fwd_ms = {}
+        for which in ("cudnn", "port", "port", "cudnn"):
+            fn = (lambda: cudnn(x_in)) if which == "cudnn" else (lambda: layer(x_in))
+            fwd_ms.setdefault(which, []).append(cuda_ms(fn, iters=5))
+        lstm_lib_ms, lstm_layer_ms = min(fwd_ms["cudnn"]), min(fwd_ms["port"])
+        del cudnn, layer, x_in
     phase("timing", f"cuDNN nn.LSTM fp32 bidirectional B={BENCH_BATCH} T={frames} H={hidden} "
-          f"(input 2H, projection included): {lstm_lib_ms:.2f} ms")
+          f"(input 2H, projection included): {lstm_lib_ms:.2f} ms (runs "
+          f"{', '.join(f'{v:.2f}' for v in fwd_ms['cudnn'])}); the port's BiLSTM layer forward, "
+          f"the same work (cuBLAS projection + lstm_recurrence): {lstm_layer_ms:.2f} ms (runs "
+          f"{', '.join(f'{v:.2f}' for v in fwd_ms['port'])})")
 
     train = training_phases(device, model, gen)
     del model
@@ -434,14 +500,19 @@ def main() -> int:
             "source": "speech_separation_tpu_torch/csrc/lstm_recurrence.cu",
             "replaces": "speech_separation_tpu/ops/lstm_pallas.py:131",
             "launches": launches["lstm_recurrence"],
-            "max_abs_err": lstm_err,
+            "max_abs_err": lstm_err["fp32"],
             "ms": lstm_ms["fp32"][0],
             "plain_ms": lstm_ms["fp32"][1],
             **bound(lstm_bytes, 2 * d * BENCH_BATCH * frames * hidden * h4, FP32_FLOPS),
             "library_ms": lstm_lib_ms,
-            "max_abs_err_bf16": lstm_err_bf16,
+            "max_abs_err_bf16": lstm_err["bf16"],
             "ms_bf16": lstm_ms["bf16"][0],
             "plain_ms_bf16": lstm_ms["bf16"][1],
+            "us_per_step": 1e3 * lstm_ms["fp32"][0] / frames,
+            "us_per_step_bf16": 1e3 * lstm_ms["bf16"][0] / frames,
+            # library_ms (cuDNN) includes the input projection; this is the
+            # port's side of that work
+            "layer_forward_ms": lstm_layer_ms,
         },
         *train,
         tasnet,
@@ -1292,6 +1363,8 @@ def training_phases(device, model, gen) -> list[dict]:
     from speech_separation_tpu_torch import train as train_mod
     from speech_separation_tpu_torch.data.datasets import WaveformLoader
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.models import blstm as blstm_module
+    from speech_separation_tpu_torch.models import upit as upit_module
     from speech_separation_tpu_torch.models.upit import UPitBlstm
     from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence
     from speech_separation_tpu_torch.ops.lstm_train_cuda import (
@@ -1318,6 +1391,8 @@ def training_phases(device, model, gen) -> list[dict]:
             for kname, k in (("", None), ("+keep", keep)):
                 want = lstm_train_forward_plain(xw, u, keep=k, compute_dtype=dt)
                 got = lstm_train_forward(xw, u, keep=k, compute_dtype=dt)
+                fwd_again = lstm_train_forward(xw, u, keep=k, compute_dtype=dt)
+                fwd_same = all(torch.equal(a, b) for a, b in zip(got, fwd_again))
                 fwd_err, fwd_bound = max_err(got, want), TRAIN_TOL
                 _, gates, c_all = want
                 want_dg = lstm_train_backward_plain(gates, c_all, dy.to(dt), u, keep=k,
@@ -1328,17 +1403,19 @@ def training_phases(device, model, gen) -> list[dict]:
                 if dt == torch.bfloat16:
                     fwd_bound, bwd_bound = bf16_bound(want), bf16_bound([want_dg])
                 torch.cuda.synchronize()
-                if not (fwd_err <= fwd_bound and bwd_err <= bwd_bound and torch.equal(got_dg, again)):
+                if not (fwd_err <= fwd_bound and bwd_err <= bwd_bound and torch.equal(got_dg, again)
+                        and fwd_same):
                     raise AssertionError(
                         f"training kernels {tag}{kname}: forward max abs err {fwd_err} "
-                        f"(bound {fwd_bound}), backward {bwd_err} (bound {bwd_bound}), backward "
-                        f"rerun bit-identical {torch.equal(got_dg, again)}"
+                        f"(bound {fwd_bound}), backward {bwd_err} (bound {bwd_bound}), reruns "
+                        f"bit-identical: forward {fwd_same}, backward {torch.equal(got_dg, again)}"
                     )
                 errs[tag + kname] = (fwd_err, bwd_err)
                 phase("train-kernels", f"{tag}{kname} H={hidden} B={batch} T={steps} D=2: "
                       f"forward (h, gates, c) max abs err {fwd_err:.3e} <= {fwd_bound:.3e}; "
                       f"backward dgates {bwd_err:.3e} <= {bwd_bound:.3e} "
-                      f"(max |dgates| {want_dg.float().abs().max().item():.3f}), rerun bit-identical")
+                      f"(max |dgates| {want_dg.float().abs().max().item():.3f}), reruns of both "
+                      f"bit-identical")
         # B = 64: four groups of 16 rows, two to a block (124 blocks, one an SM)
         xw64 = torch.randn(2, 64, steps, 4 * hidden, generator=gen, device=device)
         dy64 = torch.randn(64, steps, 2 * hidden, generator=gen, device=device)
@@ -1358,6 +1435,28 @@ def training_phases(device, model, gen) -> list[dict]:
                                      f"{launched} launches for 2 calls")
             phase("train-kernels", f"lstm_train_backward {tag} H={hidden} B=64 T={steps} D=2: dgates "
                   f"max abs err {err:.3e} <= {lim:.3e}, rerun bit-identical, one launch a call")
+        # the forward at B = 32 (the training bench's shape: one group a block,
+        # two row blocks), B = 64 (two groups a block) and B = 256 (eight)
+        for b in (32, 64, 256):
+            xwb = xw64 if b == 64 else torch.randn(2, b, steps, 4 * hidden, generator=gen,
+                                                   device=device)
+            for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                want = lstm_train_forward_plain(xwb, u, compute_dtype=dt)
+                before = lstm_train_forward.launches
+                got = lstm_train_forward(xwb, u, compute_dtype=dt)
+                again = lstm_train_forward(xwb, u, compute_dtype=dt)
+                torch.cuda.synchronize()
+                err, launched = max_err(got, want), lstm_train_forward.launches - before
+                lim = TRAIN_TOL if dt == torch.float32 else bf16_bound(want)
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                if not (err <= lim and same and launched == 2):
+                    raise AssertionError(f"lstm_train_forward B={b} {tag}: max abs err {err} "
+                                         f"(bound {lim}), rerun bit-identical {same}, {launched} "
+                                         f"launches for 2 calls")
+                phase("train-kernels", f"lstm_train_forward {tag} H={hidden} B={b} T={steps} D=2: "
+                      f"(h, gates, c) max abs err {err:.3e} <= {lim:.3e}, rerun bit-identical, "
+                      f"one launch a call")
+            del xwb, want, got, again
         del xw64, dy64
 
     cells = model.bilstm_1.cells
@@ -1387,35 +1486,48 @@ def training_phases(device, model, gen) -> list[dict]:
         for counter in counters:
             counter.launches = 0
         t0 = time.perf_counter()
-        for tag, bf16 in (("fp32", False), ("bf16", True)):
-            cfg = tmp / f"cfg_{tag}.json"
-            cfg.write_text(json.dumps({"seed": 0, "batch_size": 4, "bf16_compute": bf16}))
-            ckpt = tmp / f"ckpt_{tag}"
-            cli.main(["train", "--workload", "upit", "--config", str(cfg), "--data-root",
-                      str(root), "--epochs", "2", "--checkpoint-dir", str(ckpt)])
-            records = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
-            losses = [r["loss"] for r in records if "loss" in r]
-            vals = [r["val_loss"] for r in records if "val_loss" in r]
-            if len(losses) != 4 or len(vals) != 2 or not all(map(math.isfinite, losses + vals)):
-                raise AssertionError(f"cli train {tag}: step losses {losses}, val losses {vals}")
-            if not list(ckpt.glob("ckpt_*.pt")) or not (ckpt / "train_config.json").exists():
-                raise AssertionError(f"cli train {tag}: no checkpoint in {sorted(ckpt.iterdir())}")
-            phase("train", f"cli train {tag} (UPitBlstm at the config's full width), 2 epochs "
-                  f"of tr 8 (batch 4) + cv 4: step losses {', '.join(f'{v:.2f}' for v in losses)}; "
-                  f"val {', '.join(f'{v:.2f}' for v in vals)}")
-        out = tmp / "sep"
-        cli.main(["separate", "--checkpoint-dir", str(tmp / "ckpt_bf16"), "--data-root",
-                  str(root), "--out-dir", str(out)])
-        torch.cuda.synchronize()
+        with (counting_calls(upit_module, "bilstm_train") as fwd_calls,
+              counting_calls(blstm_module, "lstm_recurrence") as serve_calls):
+            for tag, bf16 in (("fp32", False), ("bf16", True)):
+                cfg = tmp / f"cfg_{tag}.json"
+                cfg.write_text(json.dumps({"seed": 0, "batch_size": 4, "bf16_compute": bf16}))
+                ckpt = tmp / f"ckpt_{tag}"
+                cli.main(["train", "--workload", "upit", "--config", str(cfg), "--data-root",
+                          str(root), "--epochs", "2", "--checkpoint-dir", str(ckpt)])
+                records = [json.loads(line)
+                           for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+                losses = [r["loss"] for r in records if "loss" in r]
+                vals = [r["val_loss"] for r in records if "val_loss" in r]
+                if len(losses) != 4 or len(vals) != 2 or not all(map(math.isfinite, losses + vals)):
+                    raise AssertionError(f"cli train {tag}: step losses {losses}, "
+                                         f"val losses {vals}")
+                if not list(ckpt.glob("ckpt_*.pt")) or not (ckpt / "train_config.json").exists():
+                    raise AssertionError(f"cli train {tag}: no checkpoint in "
+                                         f"{sorted(ckpt.iterdir())}")
+                phase("train", f"cli train {tag} (UPitBlstm at the config's full width), 2 epochs "
+                      f"of tr 8 (batch 4) + cv 4: step losses "
+                      f"{', '.join(f'{v:.2f}' for v in losses)}; "
+                      f"val {', '.join(f'{v:.2f}' for v in vals)}")
+            out = tmp / "sep"
+            cli.main(["separate", "--checkpoint-dir", str(tmp / "ckpt_bf16"), "--data-root",
+                      str(root), "--out-dir", str(out)])
+            torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
         if min(launches.values()) <= 0:
             raise AssertionError(f"a kernel of the training path never launched: {launches}")
+        # batches of at most 4 are one row slice each: one launch a call (a
+        # bilstm_train call is one lstm_train_forward call)
+        for name, calls in (("lstm_train_forward", fwd_calls), ("lstm_recurrence", serve_calls)):
+            if launches[name] != calls[0]:
+                raise AssertionError(f"{name}: {launches[name]} launches for {calls[0]} calls "
+                                     f"of one row slice each")
         wavs = sorted(out.glob("*.wav"))
         if len(wavs) != 8:
             raise AssertionError(f"cli separate wrote {len(wavs)} wavs for 4 mixtures")
         phase("train", f"cli train fp32 + bf16 and cli separate --checkpoint-dir (8 wavs) in "
-              f"{seconds:.1f} s; launches {launches}")
+              f"{seconds:.1f} s; launches {launches}; the forward kernels one a call "
+              f"({fwd_calls[0]} training, {serve_calls[0]} serving calls)")
 
         # the kernel path's train step against the plain path's, on one batch
         loader = WaveformLoader(root / "tr", batch_size=4)
@@ -1485,24 +1597,33 @@ def training_phases(device, model, gen) -> list[dict]:
                 phase("train-timing", f"lstm_train_{which} {tag} D=2 B={TRAIN_BATCH} T={frames} "
                       f"H={hidden}: kernel {k_ms:.2f} ms ({1e3 * k_ms / frames:.2f} us a step), "
                       f"plain {p_ms:.2f} ms")
-            phase("train-timing", f"lstm_train_backward {tag}: {1e3 * kernel_ms[tag]['backward'][0] / frames:.2f}"
-                  f" us a step in one persistent launch; train step {tag} kernel path "
+            phase("train-timing", f"lstm_train_forward {tag}: "
+                  f"{1e3 * kernel_ms[tag]['forward'][0] / frames:.2f} us a step, "
+                  f"lstm_train_backward {1e3 * kernel_ms[tag]['backward'][0] / frames:.2f} us a "
+                  f"step, each in one "
+                  f"persistent launch; train step {tag} kernel path "
                   f"{min(step_ms[(tag, 'kernel')]):.1f} ms")
 
     # cuDNN's bidirectional layer in training mode at the same shape, fp32: its
     # forward (keeping what its backward needs) and its backward; both also
     # cover the input projection, which the kernels' callers leave to cuBLAS.
-    # The same work as cuDNN's backward on the port's side is bilstm_train's
-    # whole backward: the kernel plus the dx, dkernel, drecurrent and dbias
-    # products; the two alternate, and each keeps its best of two captures.
+    # The same work on the port's side is bilstm_train's whole forward (the
+    # projection and the kernel, keeping the residuals) and its whole backward
+    # (the kernel plus the dx, dkernel, drecurrent and dbias products); each
+    # pair alternates, and each keeps its best of two captures.
     cudnn = torch.nn.LSTM(2 * hidden, hidden, batch_first=True, bidirectional=True).to(device)
     x_in = torch.randn(TRAIN_BATCH, frames, 2 * hidden, generator=gen, device=device,
                        requires_grad=True)
-    lib_fwd_ms = cuda_ms(lambda: cudnn(x_in), iters=5)
-    y_out = cudnn(x_in)[0]
-    dy_out = torch.randn_like(y_out)
     layer = [t.detach().clone().requires_grad_()
              for t in (x_in, cells.kernel, cells.recurrent_kernel, cells.bias)]
+    forward_ms = {}
+    for which in ("cudnn", "port", "port", "cudnn"):
+        fn = ((lambda: cudnn(x_in)) if which == "cudnn"
+              else (lambda: bilstm_train(*layer, compute_dtype=torch.float32)))
+        forward_ms.setdefault(which, []).append(cuda_ms(fn, iters=5))
+    lib_fwd_ms, layer_fwd_ms = min(forward_ms["cudnn"]), min(forward_ms["port"])
+    y_out = cudnn(x_in)[0]
+    dy_out = torch.randn_like(y_out)
     y_layer = bilstm_train(*layer, compute_dtype=torch.float32)
     backward_ms = {}
     for which in ("cudnn", "port", "port", "cudnn"):
@@ -1512,7 +1633,10 @@ def training_phases(device, model, gen) -> list[dict]:
     lib_bwd_ms, layer_bwd_ms = min(backward_ms["cudnn"]), min(backward_ms["port"])
     del cudnn, x_in, y_out, dy_out, layer, y_layer
     phase("train-timing", f"cuDNN nn.LSTM fp32 bidirectional training B={TRAIN_BATCH} T={frames} "
-          f"H={hidden} (input 2H, projection included): forward {lib_fwd_ms:.2f} ms, backward "
+          f"H={hidden} (input 2H, projection included): forward {lib_fwd_ms:.2f} ms (runs "
+          f"{', '.join(f'{v:.2f}' for v in forward_ms['cudnn'])}); bilstm_train's whole forward, "
+          f"the same work (cuBLAS projection + lstm_train_forward): {layer_fwd_ms:.2f} ms (runs "
+          f"{', '.join(f'{v:.2f}' for v in forward_ms['port'])}); backward "
           f"{lib_bwd_ms:.2f} ms (runs {', '.join(f'{v:.2f}' for v in backward_ms['cudnn'])}); "
           f"bilstm_train's whole backward, the same work (lstm_train_backward + dx, dkernel, "
           f"drecurrent, dbias in cuBLAS): {layer_bwd_ms:.2f} ms "
@@ -1550,12 +1674,12 @@ def training_phases(device, model, gen) -> list[dict]:
             "max_abs_err_bf16_keep": errs["bf16+keep"][i],
             "ms_bf16": kernel_ms["bf16"][which][0],
             "plain_ms_bf16": kernel_ms["bf16"][which][1],
-            # library_ms (cuDNN's backward) also computes dx and the weight
-            # gradients; layer_backward_ms is the port's side of that work
-            **({"layer_backward_ms": layer_bwd_ms,
-                "us_per_step": 1e3 * kernel_ms["fp32"][which][0] / frames,
-                "us_per_step_bf16": 1e3 * kernel_ms["bf16"][which][0] / frames}
-               if which == "backward" else {}),
+            "us_per_step": 1e3 * kernel_ms["fp32"][which][0] / frames,
+            "us_per_step_bf16": 1e3 * kernel_ms["bf16"][which][0] / frames,
+            # library_ms (cuDNN's forward and backward) also computes the input
+            # projection, and the backward dx and the weight gradients: the
+            # port's side of that work is its whole layer forward or backward
+            f"layer_{which}_ms": layer_fwd_ms if which == "forward" else layer_bwd_ms,
         })
     return entries
 

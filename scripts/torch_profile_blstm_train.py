@@ -10,7 +10,7 @@ shape (32 × 8 s at 8 kHz, T = 501 frames) with ``torch.profiler``, after two
 warm-up steps, in fp32 and in bf16. Prints one JSON line per compute type:
 host wall time per step, device busy time and idle share, launches per step,
 the device time of the port's kernels by launch name (the STFT, the LSTM
-forward recurrence, the persistent backward), of cuBLAS and of the rest, and
+persistent forward and backward), of cuBLAS and of the rest, and
 peak device memory, with the card's name and power limit.
 """
 
@@ -26,7 +26,7 @@ import time
 # csrc/lstm_recurrence.cu, csrc/lstm_train_backward.cu), then cuBLAS
 GROUPS = (
     ("stft_analysis", ("stft_fft_kernel",)),
-    ("LSTM forward recurrence (lstm_train_forward)", ("lstm_step_kernel",)),
+    ("lstm_train_forward", ("lstm_fwd_persistent_kernel",)),
     ("lstm_train_backward", ("lstm_bwd_persistent_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "Kernel2")),
 )

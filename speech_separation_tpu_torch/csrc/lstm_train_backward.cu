@@ -65,7 +65,7 @@
 //   so both run one block an SM. The eight warps' partial sums are added in
 //   a fixed order, and nothing on the data uses atomics, so reruns are
 //   bit-identical.
-// What still bounds it (scripts/torch_probe_lstm_backward.py times it with
+// What still bounds it (scripts/torch_probe_lstm.py times it with
 // the product or the loads switched off): in fp32 the product, then the
 // per-step barrier and gate backward, then the L2 reads (each of the H/16
 // blocks of a row group re-reads all of dgates_{s+1}); in bf16 the reads
@@ -76,7 +76,7 @@
 
 #include <cstdint>
 
-// Switches for scripts/torch_probe_lstm_backward.py, which builds copies with
+// Switches for scripts/torch_probe_lstm.py, which builds copies with
 // -D flags; the port's build sets none. SST_BWD_SKIP_PRODUCT and
 // SST_BWD_SKIP_LOADS leave out each step's product or its dgates loads (the
 // copy's dgates are wrong by design); SST_BWD_FP32_BLOCKS_PER_SM,

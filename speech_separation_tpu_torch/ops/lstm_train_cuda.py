@@ -8,7 +8,8 @@ kernels:
 
 - :func:`lstm_train_forward` — the forward, storing the post-activation gates
   and the cell states as residuals: the training mode of
-  ``csrc/lstm_recurrence.cu``;
+  ``csrc/lstm_recurrence.cu``, one cooperative launch for all steps (per row
+  slice of 256), tiled by ``lstm_cuda.forward_plan``;
 - :func:`lstm_train_backward` — backward through time, emitting the
   pre-activation gate gradients: ``csrc/lstm_train_backward.cu``, one
   cooperative launch for all steps, tiled by :func:`backward_plan`.
@@ -37,12 +38,18 @@ as in the reference: a 0 gates the (h, c) carry, and in the backward the
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
 from .. import _build
-from .lstm_cuda import _KERNEL_DTYPES, _check_shapes
+from .lstm_cuda import (
+    _KERNEL_DTYPES,
+    _check_shapes,
+    _device_limits,
+    _forward_launch,
+    forward_plan,
+    resident_tiling,
+)
 
 __all__ = [
     "BackwardPlan",
@@ -71,7 +78,6 @@ BWD_CHUNK = {False: 256, True: 1024}  # by bf16
 BWD_BLOCKS_PER_SM = 1
 BWD_MAX_HIDDEN = 1024
 BWD_PARTIAL_BYTES = 8 * BWD_ROWS * BWD_UNITS * 4  # 8 warps' fp32 partial sums
-BWD_RESERVED_BYTES = 1024  # shared memory the card keeps back for each block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,29 +120,19 @@ def backward_plan(
         )
     unit_blocks = -(-hidden // BWD_UNITS)
     row_groups = -(-batch // BWD_ROWS)
-    for resident in (True,) if bf16 else (True, False):  # bf16 streams no U
-        smem = backward_smem_bytes(hidden, bf16, resident)
-        per_sm = min(BWD_BLOCKS_PER_SM, smem_per_sm // (smem + BWD_RESERVED_BYTES))
-        if smem > smem_optin or per_sm < 1:
-            continue
-        for groups in range(1, BWD_MAX_GROUPS + 1):
-            plan = BackwardPlan(groups, resident, smem, unit_blocks, -(-row_groups // groups), per_sm)
-            if plan.blocks <= sms * per_sm:
-                return plan
-    raise ValueError(
-        f"lstm_train_backward: no resident grid for B={batch}, H={hidden} on {sms} SMs "
-        f"with {smem_optin} bytes of shared memory a block"
+    found = resident_tiling(
+        bf16, lambda resident: backward_smem_bytes(hidden, bf16, resident),
+        lambda groups: 2 * -(-row_groups // groups) * unit_blocks,
+        sms=sms, smem_optin=smem_optin, smem_per_sm=smem_per_sm,
+        blocks_per_sm=BWD_BLOCKS_PER_SM, max_groups=BWD_MAX_GROUPS,
     )
-
-
-@functools.lru_cache(maxsize=8)
-def _device_limits(device: torch.device) -> dict:
-    props = torch.cuda.get_device_properties(device)
-    return {
-        "sms": props.multi_processor_count,
-        "smem_optin": props.shared_memory_per_block_optin,
-        "smem_per_sm": props.shared_memory_per_multiprocessor,
-    }
+    if found is None:
+        raise ValueError(
+            f"lstm_train_backward: no resident grid for B={batch}, H={hidden} on {sms} SMs "
+            f"with {smem_optin} bytes of shared memory a block"
+        )
+    resident, smem, per_sm, groups = found
+    return BackwardPlan(groups, resident, smem, unit_blocks, -(-row_groups // groups), per_sm)
 
 
 def _scan_times(steps: int, s: int) -> list[int]:
@@ -223,20 +219,14 @@ def lstm_train_forward(
     recurrent = recurrent.to(dtype).contiguous()
     if keep is not None:
         keep = keep.to(torch.float32).contiguous()
-    h = torch.zeros((2, dirs, batch, hidden), dtype=torch.float32, device=xw.device)
-    c = torch.zeros((dirs, batch, hidden), dtype=torch.float32, device=xw.device)
     out = torch.empty((batch, steps, dirs * hidden), dtype=dtype, device=xw.device)
     gates = torch.empty((dirs, batch, steps, four_h), dtype=dtype, device=xw.device)
     c_all = torch.empty((dirs, batch, steps, hidden), dtype=torch.float32, device=xw.device)
-    with torch.cuda.device(xw.device):
-        code = _build.library().sst_lstm_train_forward(
-            xw.data_ptr(), recurrent.data_ptr(), h[0].data_ptr(), h[1].data_ptr(),
-            c.data_ptr(), out.data_ptr(), gates.data_ptr(), c_all.data_ptr(),
-            None if keep is None else keep.data_ptr(), dirs, batch, steps, hidden,
-            REVERSE_MASK, int(dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "lstm_train_forward")
-    lstm_train_forward.launches += 1
+    if steps == 0 or batch == 0:
+        return out, gates, c_all
+    plan = forward_plan(batch, hidden, dtype == torch.bfloat16, dirs, **_device_limits(xw.device))
+    _forward_launch(lstm_train_forward, xw, recurrent, out, REVERSE_MASK, plan,
+                    gates=gates, c_all=c_all, keep=keep)
     return out, gates, c_all
 
 

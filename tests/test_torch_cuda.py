@@ -16,7 +16,12 @@ import torch
 from speech_separation_tpu_torch.data.datasets import WaveformLoader
 from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
 from speech_separation_tpu_torch.models.upit import UPitBlstm
-from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence, lstm_recurrence_plain
+from speech_separation_tpu_torch.ops.lstm_cuda import (
+    _forward_launch,
+    forward_plan,
+    lstm_recurrence,
+    lstm_recurrence_plain,
+)
 from speech_separation_tpu_torch.ops.lstm_train_cuda import (
     _backward_launch,
     backward_plan,
@@ -142,6 +147,71 @@ def test_lstm_kernel_matches_plain(cuda_device, dtype, atol):
     single = lstm_recurrence(xw[1:], u[1:], reverse=(True,))
     want = lstm_recurrence_plain(xw[1:], u[1:], reverse=(True,))
     assert (single - want).abs().max().item() <= LSTM_ATOL
+
+
+def _bound(atol, dtype, want):
+    """fp32: ``atol``; bf16: ``atol`` of the largest magnitude (at least 1)."""
+    if dtype == torch.float32:
+        return atol
+    return atol * max(1.0, max(w.float().abs().max().item() for w in want))
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, LSTM_ATOL), (torch.bfloat16, LSTM_BF16_ATOL)])
+@pytest.mark.parametrize("dirs,batch,steps,hidden", [
+    (2, 32, 40, 496), (2, 256, 24, 496),  # the training and serving widths
+    (2, 300, 12, 496),  # two row slices, two launches a call
+    (1, 16, 40, 496), (2, 3, 37, 20), (2, 5, 19, 21),  # D = 1; ragged B and H (unaligned rows)
+    (2, 40, 8, 1024),  # fp32 reads U through L1 from L2
+    (2, 256, 16, 256),  # fp32: 4 groups a block, two a pass
+])
+def test_lstm_forward_kernels_match_plain(cuda_device, dtype, atol, dirs, batch, steps, hidden):
+    """The persistent forward, serving and training modes: within the plain
+    version's bound, one launch a call per row slice, reruns bit-identical."""
+    xw, u, k = _train_inputs(dirs, batch, steps, hidden, cuda_device, seed=31, keep=dirs == 2)
+    slices = -(-batch // 256)
+    for reverse in ([(False, True), (True, False)] if dirs == 2 else [(True,), (False,)]):
+        before = lstm_recurrence.launches
+        got = lstm_recurrence(xw, u, reverse=reverse, compute_dtype=dtype)
+        again = lstm_recurrence(xw, u, reverse=reverse, compute_dtype=dtype)
+        want = lstm_recurrence_plain(xw, u, reverse=reverse, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert lstm_recurrence.launches == before + 2 * slices
+        assert torch.equal(got, again)
+        assert (got.float() - want.float()).abs().max().item() <= _bound(atol, dtype, [want])
+    if dirs == 1:
+        return
+    for keep in (None, k):
+        before = lstm_train_forward.launches
+        got = lstm_train_forward(xw, u, keep=keep, compute_dtype=dtype)
+        again = lstm_train_forward(xw, u, keep=keep, compute_dtype=dtype)
+        want = lstm_train_forward_plain(xw, u, keep=keep, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert lstm_train_forward.launches == before + 2 * slices
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        bound = _bound(atol, dtype, want)
+        for g, w, name in zip(got, want, ("out", "gates", "c_all")):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert (g.float() - w.float()).abs().max().item() <= bound, name
+
+
+def test_lstm_forward_refused_launch_raises(cuda_device):
+    batch, hidden = 256, 496
+    xw, u, _ = _train_inputs(2, batch, 3, hidden, cuda_device, seed=33, keep=False)
+    plan = forward_plan(batch, hidden, False, 2, sms=132, smem_optin=232448, smem_per_sm=233472)
+    # one group a block: 2 x 16 x 31 blocks, more than the card holds at once
+    too_large = dataclasses.replace(plan, groups=1, row_blocks=16)
+    out = torch.empty(batch, 3, 2 * hidden, device=cuda_device)
+    before = lstm_recurrence.launches
+    with pytest.raises(RuntimeError, match="lstm_recurrence: CUDA error"):
+        _forward_launch(lstm_recurrence, xw, u, out, 0b10, too_large)
+    assert lstm_recurrence.launches == before
+    wide = 1100  # above the kernel's H <= 1024
+    with pytest.raises(ValueError, match="H=1100"):
+        lstm_recurrence(torch.zeros(2, 2, 3, 4 * wide, device=cuda_device),
+                        torch.zeros(2, wide, 4 * wide, device=cuda_device), reverse=(False, True))
+    with pytest.raises(ValueError, match="H=1100"):
+        lstm_train_forward(torch.zeros(2, 2, 3, 4 * wide, device=cuda_device),
+                           torch.zeros(2, wide, 4 * wide, device=cuda_device))
 
 
 def test_model_kernel_path_matches_plain(cuda_device):
