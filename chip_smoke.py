@@ -45,13 +45,16 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 8. training timing — ``bench_blstm_train``'s shape (32 utterances × 8 s,
    T=501): the train step, kernel path against plain path in fp32 and bf16,
    in audio-seconds trained per second, and each training kernel alone
-   against its plain version, also in microseconds a step; cuDNN's
+   against its plain version, also in microseconds a step (the timed
+   training forward's outputs held against the plain version in fp32 and
+   bf16, rerun bit-identical); cuDNN's
    bidirectional layer forward and backward, each alternated with
    ``bilstm_train``'s whole forward (projection and kernel) or whole backward
    (the kernel and its four gradient products), the same work;
 9. the Conv-TasNet trunk kernel against its plain version at full width
-   (B=4, cb 128, ch 256, 21 blocks, dilations 1 to 64) at K=8000 frames and
-   at a ragged K=8003, weights from the full-width ``ConvTasNet``
+   (cb 128, ch 256, 21 blocks, dilations 1 to 64) at B=4 × K=8000 frames and
+   a ragged K=8003, at B=7 × K=3000 (more items than its plan keeps in
+   flight) and B=3 × K=50 (below the dilation-64 halo), weights from the full-width ``ConvTasNet``
    (2,226,092 random parameters from seed 0, norms, biases and slopes
    perturbed), with a bit-identical rerun;
 10. Conv-TasNet serving path — a port checkpoint of that model, then ``cli
@@ -63,7 +66,10 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 11. Conv-TasNet timing at ``bench.py::bench_tasnet``'s shape (64 × 8 s,
    ``default_rng(0)`` normal × 0.1), win 16 and 32: the module in fp32 and
    bf16 and ``cuda_apply`` (kernel and plain trunk) in ×-real-time, and the
-   trunk kernel alone against its plain version;
+   trunk kernel alone against its plain version, its timed output held
+   against the plain trunk (rerun bit-identical), the device operations of
+   one call under the profiler (one trunk kernel launch) and the kernel's
+   time by part of a block (its ``%globaltimer`` laps);
 12. the Conv-TasNet training kernels against their plain versions at full
    width (B=4, cb 128, ch 256, 21 blocks) at K=4000 frames
    (``bench_tasnet_train``'s 4 s at win 16) and a ragged K=4003: the
@@ -81,7 +87,9 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 14. Conv-TasNet training timing at ``bench_tasnet_train``'s shape (16 × 4 s,
    win 16): the train step of the kernel path, the plain-trunk path and the
    module's autograd in fp32 and bf16, in audio-seconds trained per second,
-   and each training kernel alone against its plain version;
+   and each training kernel alone against its plain version, the timed
+   calls' outputs held to phase 12's bounds (reruns bit-identical) and the
+   training forward's time by part of a block;
 15. the nearest-code kernel against its plain version at the codec's shapes
    (t3tok at 64 x 8 s: deep N=12,800 D=64 K=512, skip N=51,200 D=16 K=512)
    and a ragged N=12,803 D=13 K=509, every differing pick a near tie by
@@ -162,7 +170,7 @@ TASNET_TRAIN_BATCH, TASNET_TRAIN_SECONDS = 16, 4.0  # bench.py::bench_tasnet_tra
 # flipped rounding moves a gradient by a bf16 ulp of its summands (2^-8);
 # relative L2 of each gradient, and of each used row of dvec on its own (the
 # rows' scales differ, so a wrong row could hide in the whole). Measured at
-# most 7.6e-3 (H100 80GB HBM3, 700 W).
+# most 7.7e-3 (H100 80GB HBM3, 700 W).
 TRAIN_TRUNK_GRAD_REL = 3e-2
 # The saved statistics, each column (mu1, 1/sigma1, mu2, 1/sigma2) on its own:
 # means over an item's 1M elements of t1 and t2, which differ from the plain
@@ -533,6 +541,28 @@ def snr_db(ref, est) -> float:
                              / (ref.double() - est.double()).square().sum().clamp_min(1e-30))).item()
 
 
+def check_trunk(h0, stacks, dils) -> tuple[float, float, float]:
+    """``tcn_trunk_cuda`` at h0 against ``tcn_trunk_plain`` within 3e-2 x
+    max(1, max |skip|), rerun bit-identical; raises if not. Returns (max abs
+    error, bound, max |skip|)."""
+    import torch
+
+    from speech_separation_tpu_torch.ops.tcn_cuda import tcn_trunk_cuda, tcn_trunk_plain
+
+    got = tcn_trunk_cuda(h0, *stacks, dils=dils)
+    again = tcn_trunk_cuda(h0, *stacks, dils=dils)
+    want = tcn_trunk_plain(h0, *stacks, dils=dils)
+    torch.cuda.synchronize()
+    peak = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    bound = TRUNK_BF16_TOL * max(1.0, peak)
+    same = torch.equal(got, again)
+    if got.shape != want.shape or not err <= bound or not same:
+        raise AssertionError(f"tcn_trunk {tuple(h0.shape)}: shape {tuple(got.shape)}, max abs err "
+                             f"{err} (bound {bound}), rerun identical {same}")
+    return err, bound, peak
+
+
 def tasnet_phases(device, gen) -> dict:
     """Phases 9 to 11; returns the trunk kernel's entry of the kernels line."""
     import copy
@@ -546,10 +576,14 @@ def tasnet_phases(device, gen) -> dict:
     from speech_separation_tpu_torch.data.datasets import WaveformLoader
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
     from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply, fused_apply
+    from speech_separation_tpu_torch.ops.tcn_cuda import _device_limits as trunk_limits
     from speech_separation_tpu_torch.ops.tcn_cuda import (
+        TRUNK_LAPS,
         stack_tcn_weights,
         tcn_trunk_cuda,
         tcn_trunk_plain,
+        trunk_phase_ms,
+        trunk_plan,
     )
     from speech_separation_tpu_torch.utils import UPitTrainConfig, save_config
 
@@ -563,22 +597,18 @@ def tasnet_phases(device, gen) -> dict:
     stacks = stack_tcn_weights(dict(model.state_dict()), blocks=7, repeats=3)
     trunk_err = 0.0
     before = tcn_trunk_cuda.launches
-    for frames in (8000, 8003):
-        h0 = torch.randn(4, frames, 128, generator=gen, device=device)
-        want = tcn_trunk_plain(h0, *stacks, dils=dils)
-        got = tcn_trunk_cuda(h0, *stacks, dils=dils)
-        again = tcn_trunk_cuda(h0, *stacks, dils=dils)
-        torch.cuda.synchronize()
-        peak = want.float().abs().max().item()
-        err = (got.float() - want.float()).abs().max().item()
-        bound = TRUNK_BF16_TOL * max(1.0, peak)
-        if got.shape != want.shape or not err <= bound or not torch.equal(got, again):
-            raise AssertionError(f"tcn_trunk K={frames}: shape {tuple(got.shape)}, max abs err "
-                                 f"{err} (bound {bound}), rerun identical {torch.equal(got, again)}")
+    # the bench's frames and a ragged K; a batch past the items the plan keeps
+    # in flight (several items a group); K below the largest dilation's halo
+    for batch, frames in ((4, 8000), (4, 8003), (7, 3000), (3, 50)):
+        h0 = torch.randn(batch, frames, 128, generator=gen, device=device)
+        err, bound, peak = check_trunk(h0, stacks, dils)
         trunk_err = max(trunk_err, err)
-        phase("tasnet-kernel", f"tcn_trunk B=4 K={frames} cb=128 ch=256 21 blocks bf16: max abs "
-              f"err {err:.3e} <= {bound:.3e} (3e-2 x max |skip| {peak:.2f}); rerun bit-identical")
-    phase("tasnet-kernel", f"tcn_trunk launches in these checks: {tcn_trunk_cuda.launches - before}")
+        plan = trunk_plan(batch, frames, 128, 256, 3, dils, **trunk_limits(device))
+        phase("tasnet-kernel", f"tcn_trunk B={batch} K={frames} cb=128 ch=256 21 blocks bf16 "
+              f"({plan.groups} items in flight, {plan.ctas} CTAs an item): max abs err {err:.3e} "
+              f"<= {bound:.3e} (3e-2 x max |skip| {peak:.2f}); rerun bit-identical")
+    phase("tasnet-kernel", f"tcn_trunk launches in these checks: {tcn_trunk_cuda.launches - before}"
+          " (two calls each)")
 
     # 10. serving path through the port's CLI at full width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tasnet_") as tmp:
@@ -650,7 +680,7 @@ def tasnet_phases(device, gen) -> dict:
         np.random.default_rng(0).standard_normal((TASNET_BATCH, samples)).astype(np.float32) * 0.1
     ).to(device)
     audio_s = TASNET_BATCH * BENCH_SECONDS
-    trunk_ms = {}
+    trunk_ms, trunk_launches = {}, {}
     for win in (16, 32):
         m = full_width_tasnet(device, win)
         m16 = copy.deepcopy(m).to(torch.bfloat16)
@@ -679,11 +709,33 @@ def tasnet_phases(device, gen) -> dict:
             runs[kind].append(cuda_ms(lambda: fn(h0, *st, dils=dils), iters=3))
         trunk_ms[win] = (min(runs["kernel"]), min(runs["plain"]))
         flops = 2 * TASNET_BATCH * k * 21 * (128 * 256 + 256 * 256)
+        b_ = trunk_bound(TASNET_BATCH, k)
         phase("tasnet-timing", f"tcn_trunk win {win} B={TASNET_BATCH} K={k}: kernel "
               f"{trunk_ms[win][0]:.2f} ms ({flops / trunk_ms[win][0] / 1e9:.1f} TFLOP/s in the "
-              f"1x1 products), plain {trunk_ms[win][1]:.2f} ms (runs kernel "
-              f"{', '.join(f'{v:.2f}' for v in runs['kernel'])}; plain "
+              f"1x1 products; bound {b_['bound_ms']:.3f} ms by {b_['bound_by']}, "
+              f"{100 * b_['bound_ms'] / trunk_ms[win][0]:.1f}%), plain {trunk_ms[win][1]:.2f} ms "
+              f"(runs kernel {', '.join(f'{v:.2f}' for v in runs['kernel'])}; plain "
               f"{', '.join(f'{v:.2f}' for v in runs['plain'])})")
+        # the timed calls' output against the plain trunk, rerun bit-identical
+        err, bound, peak = check_trunk(h0, st, dils)
+        trunk_err = max(trunk_err, err)
+        # what one call launches on the device, and where the kernel's time goes
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            tcn_trunk_cuda(h0, *st, dils=dils)
+            torch.cuda.synchronize()
+        device_ops = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        kernel_ops = [n for n in device_ops if "trunk_kernel" in n]
+        trunk_launches[win] = len(kernel_ops)
+        phases = trunk_phase_ms(h0, *st, dils=dils)
+        phase("tasnet-timing", f"tcn_trunk win {win}: the timed output against the plain trunk, "
+              f"max abs err {err:.3e} <= {bound:.3e} (3e-2 x max |skip| {peak:.2f}), rerun "
+              f"bit-identical; one call: {len(kernel_ops)} trunk kernel launch ({phases['groups']} "
+              f"groups x {phases['ctas']} CTAs) of {len(device_ops)} device operations "
+              f"({', '.join(sorted(set(n[:40] for n in device_ops)))}); mean ms a CTA "
+              "(%globaltimer): " + ", ".join(
+                  f"{p_} {phases[p_]:.3f}" for p_ in TRUNK_LAPS))
+        if len(kernel_ops) != 1:
+            raise AssertionError(f"tcn_trunk: {len(kernel_ops)} trunk kernel launches a call")
         del m, m16, st, h0
         torch.cuda.empty_cache()
 
@@ -700,6 +752,7 @@ def tasnet_phases(device, gen) -> dict:
         "library_ms": None,
         "ms_win32": trunk_ms[32][0],
         "plain_ms_win32": trunk_ms[32][1],
+        "kernel_launches_per_call": trunk_launches[16],
     }
 
 
@@ -766,6 +819,69 @@ def flat_parts(parts: dict) -> dict:
     return out
 
 
+def check_training_trunk(h0, dskip, canon, folded, dils, *, serving: bool = False) -> dict:
+    """The training kernels at (h0, dskip) against their plain versions: the
+    forward's skip and saved h (max abs, 3e-2 x max(1, peak)) and each
+    statistic column (rel L2); the backward on the kernel's residuals against
+    the plain backward on the same (rel L2 per gradient and used dvec row),
+    and the kernel chain against the plain chain; both kernels rerun
+    bit-identical, and with ``serving`` the forward's skip equal to
+    ``tcn_trunk_cuda``'s. Raises if any is out of bounds; returns the errors,
+    the scales they are of, the largest gradient rel L2 and a report."""
+    import torch
+
+    from speech_separation_tpu_torch.ops.tcn_cuda import tcn_trunk_cuda
+    from speech_separation_tpu_torch.ops.tcn_train_cuda import (
+        tcn_train_backward,
+        tcn_train_backward_plain,
+        tcn_train_forward,
+        tcn_train_forward_plain,
+    )
+
+    skip, hb, st = tcn_train_forward(h0, *folded, dils=dils)
+    fwd_again = tcn_train_forward(h0, *folded, dils=dils)
+    want = tcn_train_forward_plain(h0, *folded, dils=dils)
+    grads = tcn_train_backward(dskip, hb, st, *canon, dils=dils)
+    again = tcn_train_backward(dskip, hb, st, *canon, dils=dils)
+    plain = tcn_train_backward_plain(dskip, hb, st, *canon, dils=dils)
+    chain = tcn_train_backward_plain(dskip, want[1], want[2], *canon, dils=dils)
+    torch.cuda.synchronize()
+    if serving and not torch.equal(skip, tcn_trunk_cuda(h0, *folded, dils=dils)):
+        raise AssertionError(f"tcn_train_forward {tuple(h0.shape)}: skip differs from tcn_trunk")
+    fwd = {}
+    for what, got, ref in (("skip", skip, want[0]), ("h", hb, want[1])):
+        peak = ref.float().abs().max().item()
+        fwd[what] = ((got.float() - ref.float()).abs().max().item(), TRUNK_BF16_TOL * max(1.0, peak))
+    for i, col in enumerate(STAT_COLUMNS):
+        fwd[col] = (rel_l2(st[..., i], want[2][..., i]), TRAIN_TRUNK_STATS_REL)
+    bwd = {name: rel_l2_parts(name, g, r) for name, g, r in zip(GRAD_NAMES, grads, plain)}
+    chained = {name: rel_l2_parts(name, g, r) for name, g, r in zip(GRAD_NAMES, grads, chain)}
+    bad = {k: v for k, v in fwd.items() if not v[0] <= v[1]}
+    bad.update({f"backward {k}": v for k, v in flat_parts(bwd).items()
+                if not v <= TRAIN_TRUNK_GRAD_REL})
+    bad.update({f"chain {k}": v for k, v in flat_parts(chained).items()
+                if not v <= TRAIN_TRUNK_CHAIN_REL})
+    if grads[4][:, 7].any():
+        bad["dvec[7] (unused) not zero"] = grads[4][:, 7].abs().max().item()
+    same = {"forward": all(torch.equal(a, b) for a, b in zip((skip, hb, st), fwd_again)),
+            "backward": all(torch.equal(a, b) for a, b in zip(grads, again))}
+    if bad or not all(same.values()):
+        raise AssertionError(f"training trunk {tuple(h0.shape)}: out of bounds {bad}, reruns "
+                             f"bit-identical {same}")
+    report = (("forward skip ≡ tcn_trunk bit for bit; " if serving else "") + "forward vs plain: "
+              + "; ".join(f"{k} {v[0]:.3e} <= {v[1]:.3e}" for k, v in fwd.items())
+              + " (skip, h max abs, 3e-2 x max(1, peak); statistics rel L2 per column); backward "
+              f"on the same residuals, rel L2 <= {TRAIN_TRUNK_GRAD_REL}: "
+              + "; ".join(f"{k} {v:.2e}" for k, v in flat_parts(bwd).items())
+              + f"; kernel chain against plain chain, rel L2 <= {TRAIN_TRUNK_CHAIN_REL}: "
+              + "; ".join(f"{k} {v:.2e}" for k, v in flat_parts(chained).items())
+              + "; reruns of both bit-identical")
+    return {"err": {"forward": fwd["skip"][0], "backward": max_err(grads, plain)},
+            "scale": {"forward": want[0].float().abs().max().item(),
+                      "backward": max(r.abs().max().item() for r in plain)},
+            "grad_rel": max(flat_parts(bwd).values()), "report": report}
+
+
 def tasnet_training_phases(device, gen) -> list[dict]:
     """Phases 12 to 14; returns the two training kernels' entries of the kernels line."""
     import numpy as np
@@ -778,9 +894,11 @@ def tasnet_training_phases(device, gen) -> list[dict]:
     from speech_separation_tpu_torch.losses import pit_si_sdr_loss
     from speech_separation_tpu_torch.models.tasnet_serving import train_apply
     from speech_separation_tpu_torch.ops.tcn_cuda import (
+        TRUNK_LAPS,
         fold_canonical,
         stack_canonical,
         tcn_trunk_cuda,
+        trunk_phase_ms,
         trunk_reference,
     )
     from speech_separation_tpu_torch.ops.tcn_train_cuda import (
@@ -803,50 +921,14 @@ def tasnet_training_phases(device, gen) -> list[dict]:
     for frames in (4000, 4003):
         h0 = torch.randn(4, frames, TRUNK_CB, generator=gen, device=device)
         dskip = torch.randn(4, frames, TRUNK_CB, generator=gen, device=device)
-        skip, hb, st = tcn_train_forward(h0, *folded, dils=dils)
-        want = tcn_train_forward_plain(h0, *folded, dils=dils)
-        serving = tcn_trunk_cuda(h0, *folded, dils=dils)
-        grads = tcn_train_backward(dskip, hb, st, *canon, dils=dils)
-        again = tcn_train_backward(dskip, hb, st, *canon, dils=dils)
-        plain = tcn_train_backward_plain(dskip, hb, st, *canon, dils=dils)
-        chain = tcn_train_backward_plain(dskip, want[1], want[2], *canon, dils=dils)
-        torch.cuda.synchronize()
-        if not torch.equal(skip, serving):
-            raise AssertionError(f"tcn_train_forward K={frames}: skip differs from tcn_trunk")
-        fwd = {}
-        for what, got, ref in (("skip", skip, want[0]), ("h", hb, want[1])):
-            peak = ref.float().abs().max().item()
-            fwd[what] = ((got.float() - ref.float()).abs().max().item(), TRUNK_BF16_TOL * max(1.0, peak))
-        for i, col in enumerate(STAT_COLUMNS):
-            fwd[col] = (rel_l2(st[..., i], want[2][..., i]), TRAIN_TRUNK_STATS_REL)
-        bwd = {name: rel_l2_parts(name, g, r) for name, g, r in zip(GRAD_NAMES, grads, plain)}
-        chained = {name: rel_l2_parts(name, g, r) for name, g, r in zip(GRAD_NAMES, grads, chain)}
-        bad = {k: v for k, v in fwd.items() if not v[0] <= v[1]}
-        bad.update({f"backward {k}": v for k, v in flat_parts(bwd).items()
-                    if not v <= TRAIN_TRUNK_GRAD_REL})
-        bad.update({f"chain {k}": v for k, v in flat_parts(chained).items()
-                    if not v <= TRAIN_TRUNK_CHAIN_REL})
-        if grads[4][:, 7].any():
-            bad["dvec[7] (unused) not zero"] = grads[4][:, 7].abs().max().item()
-        same = all(torch.equal(a, b) for a, b in zip(grads, again))
-        if bad or not same:
-            raise AssertionError(f"training trunk K={frames}: out of bounds {bad}, backward rerun "
-                                 f"bit-identical {same}")
-        errs["forward"] = max(errs["forward"], fwd["skip"][0])
-        errs["backward"] = max(errs["backward"], max_err(grads, plain))
-        scale["forward"] = max(scale["forward"], want[0].float().abs().max().item())
-        scale["backward"] = max(scale["backward"], max(r.abs().max().item() for r in plain))
-        grad_rel = max(grad_rel, max(flat_parts(bwd).values()))
-        phase("tasnet-train-kernels", f"B=4 K={frames} cb=128 ch=256 21 blocks bf16: forward skip "
-              f"≡ tcn_trunk bit for bit; vs plain: " + "; ".join(
-                  f"{k} {v[0]:.3e} <= {v[1]:.3e}" for k, v in fwd.items())
-              + " (skip, h max abs, 3e-2 x max(1, peak); statistics rel L2 per column); backward "
-              f"on the same residuals, rel L2 <= {TRAIN_TRUNK_GRAD_REL}: "
-              + "; ".join(f"{k} {v:.2e}" for k, v in flat_parts(bwd).items())
-              + f"; kernel chain against plain chain, rel L2 <= {TRAIN_TRUNK_CHAIN_REL}: "
-              + "; ".join(f"{k} {v:.2e}" for k, v in flat_parts(chained).items())
-              + "; rerun bit-identical")
-        del skip, hb, st, want, serving, grads, again, plain, chain
+        found = check_training_trunk(h0, dskip, canon, folded, dils, serving=True)
+        for which in errs:
+            errs[which] = max(errs[which], found["err"][which])
+            scale[which] = max(scale[which], found["scale"][which])
+        grad_rel = max(grad_rel, found["grad_rel"])
+        phase("tasnet-train-kernels", f"B=4 K={frames} cb=128 ch=256 21 blocks bf16: "
+              + found["report"])
+        del h0, dskip, found
 
     h0 = torch.randn(4, 4003, TRUNK_CB, generator=gen, device=device)
     probe = torch.randn(4, 4003, TRUNK_CB, generator=gen, device=device)
@@ -997,7 +1079,17 @@ def tasnet_training_phases(device, gen) -> list[dict]:
               f"{100 * b_['bound_ms'] / kernel_ms[which][0]:.1f}%), plain {kernel_ms[which][1]:.2f} ms "
               f"(runs kernel {', '.join(f'{v:.2f}' for v in runs['kernel'])}; plain "
               f"{', '.join(f'{v:.2f}' for v in runs['plain'])})")
-    del model, canon, folded, h0, dskip, hb, st
+    del hb, st
+    # the timed calls' outputs against their plain versions, phase 12's bounds
+    timed = check_training_trunk(h0, dskip, canon, folded, dils)
+    phase("tasnet-train-timing", f"the timed tcn_train_forward and tcn_train_backward, "
+          f"B={TASNET_TRAIN_BATCH} K={k}: " + timed["report"])
+    fwd_phases = trunk_phase_ms(h0, *folded, dils=dils, residuals=True)
+    phase("tasnet-train-timing", f"tcn_train_forward B={TASNET_TRAIN_BATCH} K={k}: one "
+          f"cooperative launch of {fwd_phases['groups']} groups x {fwd_phases['ctas']} CTAs; mean "
+          "ms a CTA (%globaltimer): " + ", ".join(
+              f"{p_} {fwd_phases[p_]:.3f}" for p_ in TRUNK_LAPS))
+    del model, canon, folded, h0, dskip
     torch.cuda.empty_cache()
 
     return [
@@ -1597,6 +1689,22 @@ def training_phases(device, model, gen) -> list[dict]:
                 phase("train-timing", f"lstm_train_{which} {tag} D=2 B={TRAIN_BATCH} T={frames} "
                       f"H={hidden}: kernel {k_ms:.2f} ms ({1e3 * k_ms / frames:.2f} us a step), "
                       f"plain {p_ms:.2f} ms")
+            # the timed forward's outputs against its plain version at this
+            # shape (one group a block over two row blocks), rerun bit-identical
+            got = lstm_train_forward(x_t, u_t)
+            again = lstm_train_forward(x_t, u_t)
+            want = lstm_train_forward_plain(x_t, u_t)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            lim = TRAIN_TOL if dt == torch.float32 else bf16_bound(want)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not (err <= lim and same):
+                raise AssertionError(f"timed lstm_train_forward {tag} B={TRAIN_BATCH}: max abs err "
+                                     f"{err} (bound {lim}), rerun bit-identical {same}")
+            phase("train-timing", f"the timed lstm_train_forward {tag} B={TRAIN_BATCH} T={frames} "
+                  f"H={hidden} against its plain version: (h, gates, c) max abs err {err:.3e} <= "
+                  f"{lim:.3e}, rerun bit-identical")
+            del got, again, want
             phase("train-timing", f"lstm_train_forward {tag}: "
                   f"{1e3 * kernel_ms[tag]['forward'][0] / frames:.2f} us a step, "
                   f"lstm_train_backward {1e3 * kernel_ms[tag]['backward'][0] / frames:.2f} us a "

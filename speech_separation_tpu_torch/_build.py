@@ -51,12 +51,16 @@ _SIGNATURES = {
     # gates, c_all, dy, u, keep, dgates, counters, dirs, batch, steps, hidden,
     # reverse_mask, bf16, groups, resident, stream
     "sst_lstm_train_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # h, skip, t1, t2, part, we, wdw, wg, vecs, dils (host int array), batch,
-    # frames, cb, ch, vdim, taps, blocks, stream
-    "sst_tcn_trunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # sst_tcn_trunk's arguments with hb, st after dils
+    # h0, h, skip, t1, t2, part, counters, we_t, wdw, wg_t, vecs, dils (host
+    # int array), timing, batch, frames, cb, ch, vdim, taps, blocks, groups,
+    # ctas, stream
+    "sst_tcn_trunk": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # sst_tcn_trunk's arguments with hb, st after timing
     "sst_tcn_trunk_train": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # hb, st, dskip, dh, we, wdw, wcat, vecs, dils (host int array), dwe, dwdw,
     # dwcat, dvec, scratch16, scratch32, batch, frames, cb, ch, vdim, taps,

@@ -26,7 +26,8 @@ plain version rounds at exactly these places.
 from __future__ import annotations
 
 import ctypes
-import math
+import dataclasses
+import functools
 from typing import Mapping, Sequence
 
 import torch
@@ -43,14 +44,117 @@ __all__ = [
     "trunk_forward_plain",
     "tcn_trunk_plain",
     "tcn_trunk_cuda",
+    "TrunkPlan",
+    "trunk_plan",
+    "trunk_smem_bytes",
     "launch_trunk",
+    "trunk_phase_ms",
 ]
 
 MAX_DILATION = 64  # tcn_trunk_pallas' slab halo; its assert is kept
 _EPS = 1e-8
-# csrc/tcn_trunk.cu's tiles, which size the per-tile statistics scratch
-_TILE_ROWS = 64
-_TILE_COLS = 128
+# csrc/tcn_trunk.cu's and csrc/tcn_common.cuh's tiling (tests hold them to the source)
+TRUNK_THREADS = 256  # two warpgroups a CTA
+TRUNK_TILE_ROWS = 128  # rows a CTA tile: 64 a warpgroup
+TRUNK_TILE_COLS = 256  # output columns a pass: one wgmma m64n256k16 a warpgroup
+TRUNK_DEPTH = 64  # depth of a shared-memory stage of the product
+TRUNK_STAGES = 3  # the product's ring of stages
+TRUNK_SLICE = 64  # channels a (B) unit stages
+TRUNK_MAX_TAPS = 8
+TRUNK_MAX_BLOCKS = 256  # dilations carried in the launch parameters
+TRUNK_L2_SHARE = 0.8  # of the L2: the budget for the items in flight and the weights
+# the parts of a block csrc/tcn_trunk.cu times with %globaltimer (its enum Lap)
+TRUNK_LAPS = ("A coefficients", "A products", "A epilogue", "B statistics", "B taps",
+              "C products", "C epilogue", "waiting")
+_RESERVED_BYTES = 2048  # a CTA's static shared memory and the system's reservation
+
+
+@dataclasses.dataclass(frozen=True)
+class TrunkPlan:
+    """One cooperative launch of ``groups`` x ``ctas`` CTAs, one an SM: item
+    ``i`` belongs to group ``i % groups`` (``groups`` items in flight), and
+    CTA ``rank`` of a group owns the 128-row tiles ``rank, rank + ctas, ...``
+    of its item in every phase."""
+
+    groups: int
+    ctas: int
+    tiles: int  # 128-row tiles an item
+    smem: int  # dynamic shared memory a CTA
+    item_bytes: int  # one item in flight in L2: h, skip, t1, t2
+    weight_bytes: int  # every block's weights
+    l2_budget: int
+    halo: int  # rows (B) stages beyond a tile: (taps - 1) x the largest dilation
+
+    @property
+    def grid(self) -> int:
+        return self.groups * self.ctas
+
+    @property
+    def resident(self) -> bool:
+        """Whether the items in flight and the weights fit the L2 budget (a
+        single item that does not still runs, through device memory)."""
+        return self.groups * self.item_bytes + self.weight_bytes <= self.l2_budget
+
+
+def trunk_smem_bytes(taps: int, max_dil: int, cb: int, ch: int) -> int:
+    """Dynamic shared memory of ``csrc/tcn_trunk.cu``: a staging area, the
+    product's ring of stages or (B)'s two buffers of a tile's rows and halo for
+    a 64-channel slice, whichever is larger, aligned to 1,024 bytes, then a
+    block's per-column vectors and depthwise weights in fp32, ``(6 + taps) ch
+    + 4 cb`` of them."""
+    span = TRUNK_TILE_ROWS + (taps - 1) * max_dil
+    buf = -(-(span * TRUNK_SLICE * 2) // 1024) * 1024
+    ring = TRUNK_STAGES * (TRUNK_TILE_ROWS + TRUNK_TILE_COLS) * TRUNK_DEPTH * 2
+    return 1024 + max(ring, 2 * buf) + 4 * ((6 + taps) * ch + 4 * cb)  # 1,024 to align it
+
+
+def trunk_plan(batch: int, frames: int, cb: int, ch: int, taps: int, dils: Sequence[int], *,
+               sms: int, smem_optin: int, smem_per_sm: int, l2_bytes: int) -> TrunkPlan:
+    """The trunk's launch plan on a card with ``sms`` SMs, ``smem_optin`` bytes
+    of shared memory a block, ``smem_per_sm`` an SM and ``l2_bytes`` of L2.
+
+    Of the group counts whose items in flight (their h, skip, t1 and t2) and
+    the weights fit ``TRUNK_L2_SHARE`` of the L2 (one group always may), the
+    one with the fewest rounds a CTA walks, items a group times tiles a CTA,
+    each group taking as many of the card's SMs as its item has tiles; the
+    fewest groups among equals. Raises where the shared memory does not fit.
+    """
+    if batch < 1 or frames < 1 or not dils:
+        raise ValueError(f"tcn_trunk: B={batch}, K={frames}, {len(dils)} blocks")
+    if not 1 <= taps <= TRUNK_MAX_TAPS or len(dils) > TRUNK_MAX_BLOCKS:
+        raise ValueError(f"tcn_trunk: {taps} taps and {len(dils)} blocks; the kernel takes at "
+                         f"most {TRUNK_MAX_TAPS} taps and {TRUNK_MAX_BLOCKS} blocks")
+    halo = (taps - 1) * max(dils)
+    smem = trunk_smem_bytes(taps, max(dils), cb, ch)
+    if smem > smem_optin or smem + _RESERVED_BYTES > smem_per_sm:
+        raise ValueError(f"tcn_trunk: {smem} bytes of shared memory a CTA; the card has "
+                         f"{smem_optin} a block")
+    tiles = -(-frames // TRUNK_TILE_ROWS)
+    item_bytes = 2 * frames * (2 * cb + 2 * ch)
+    n = len(dils)
+    weight_bytes = n * (2 * cb * ch + 2 * ch * 2 * cb + 4 * taps * ch + 4 * 8 * max(ch, 2 * cb))
+    budget = int(TRUNK_L2_SHARE * l2_bytes)
+    best = None
+    for groups in range(1, min(batch, sms) + 1):
+        if groups > 1 and groups * item_bytes + weight_bytes > budget:
+            break
+        ctas = min(tiles, sms // groups)
+        rounds = -(-batch // groups) * -(-tiles // ctas)
+        if best is None or rounds < best[0]:
+            best = (rounds, groups, ctas)
+    _, groups, ctas = best
+    return TrunkPlan(groups, ctas, tiles, smem, item_bytes, weight_bytes, budget, halo)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_limits(device: torch.device) -> dict:
+    props = torch.cuda.get_device_properties(device)
+    return {
+        "sms": props.multi_processor_count,
+        "smem_optin": props.shared_memory_per_block_optin,
+        "smem_per_sm": props.shared_memory_per_multiprocessor,
+        "l2_bytes": props.L2_cache_size,
+    }
 
 
 def stack_canonical(params: Mapping[str, torch.Tensor], *, blocks: int, repeats: int):
@@ -217,12 +321,16 @@ def tcn_trunk_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3
 
 
 def trunk_forward_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3,
-                        storage: torch.dtype = torch.bfloat16, residuals: bool = False):
+                        storage: torch.dtype = torch.bfloat16, residuals: bool = False,
+                        ctas: int | None = None):
     """The trunk in plain PyTorch with its roundings to ``storage`` (bf16 for
     the kernels): ``(skip, hb, st)``. ``residuals=True`` also returns the
     training forward's residuals, each block's input ``hb [N, B, K, cb]``
     (``storage``) and ``st [N, B, 4]`` fp32 ``(mu1, 1/sigma1, mu2, 1/sigma2)``;
-    else both are ``None``."""
+    else both are ``None``. ``ctas`` sums the statistics in the kernel's
+    order for a group of that many CTAs (each CTA's partial over the 128-row
+    tiles it owns, the partials added in rank order), a model of the
+    kernel's reduction; by default they are summed as one tensor sum."""
     b, k, cb, ch, n = _check(h0, we, wdw, wg, vecs, dils, taps, storage)
     inv_n = torch.tensor(1.0 / (k * ch), dtype=torch.float32, device=h0.device)
     rows = torch.arange(k, device=h0.device)
@@ -241,7 +349,7 @@ def trunk_forward_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int
 
         y = h.float() @ we[j].float() + b_e
         t1 = torch.where(y >= 0, y, a1 * y)
-        mu1, st1 = _folded_stats(t1, inv_n)
+        mu1, st1 = _folded_stats(t1, inv_n, ctas)
         av1 = g1 * st1[:, None]  # [B, ch]
         bv1 = be1 - mu1[:, None] * av1
         wsum = w[0]
@@ -260,7 +368,7 @@ def trunk_forward_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int
                 invalid = ((rows + off < 0) | (rows + off >= k)).float()
                 pre = pre - (bv1 * w[t])[:, None, :] * invalid[None, :, None]
         t2 = torch.where(pre >= 0, pre, a2 * pre)
-        mu2, st2 = _folded_stats(t2, inv_n)
+        mu2, st2 = _folded_stats(t2, inv_n, ctas)
         bias2 = biasc - (mu2 * st2)[:, None] * csum  # [B, 2cb]
         if residuals:
             st[j] = torch.stack([mu1, st1, mu2, st2], dim=1)
@@ -271,10 +379,21 @@ def trunk_forward_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int
     return skip, hb, st
 
 
-def _folded_stats(x: torch.Tensor, inv_n: torch.Tensor):
-    """Per-item one-pass gLN statistics ``(mu, 1/sigma)`` of fp32 ``x``, each ``[B]``."""
-    mu = x.sum(dim=(1, 2)) * inv_n
-    var = torch.clamp((x * x).sum(dim=(1, 2)) * inv_n - mu * mu, min=0.0)
+def _folded_stats(x: torch.Tensor, inv_n: torch.Tensor, ctas: int | None = None):
+    """Per-item one-pass gLN statistics ``(mu, 1/sigma)`` of fp32 ``x``, each
+    ``[B]``; with ``ctas``, the sums in the kernel's order (see
+    :func:`trunk_forward_plain`)."""
+    if ctas is None:
+        s, sq = x.sum(dim=(1, 2)), (x * x).sum(dim=(1, 2))
+    else:
+        rank = (torch.arange(x.shape[1], device=x.device) // TRUNK_TILE_ROWS) % ctas
+        rows = torch.stack([x.sum(dim=2), (x * x).sum(dim=2)])  # [2, B, K]
+        part = rows.new_zeros((2, x.shape[0], ctas)).index_add_(2, rank, rows)
+        s, sq = part[0, :, 0], part[1, :, 0]
+        for r in range(1, ctas):
+            s, sq = s + part[0, :, r], sq + part[1, :, r]
+    mu = s * inv_n
+    var = torch.clamp(sq * inv_n - mu * mu, min=0.0)
     return mu, 1.0 / torch.sqrt(var + _EPS)
 
 
@@ -296,36 +415,62 @@ def tcn_trunk_cuda(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3)
 tcn_trunk_cuda.launches = 0
 
 
-def launch_trunk(h0, we, wdw, wg, vecs, *, dils, taps, name: str, residuals: bool = False):
+def launch_trunk(h0, we, wdw, wg, vecs, *, dils, taps, name: str, residuals: bool = False,
+                 timing: torch.Tensor | None = None):
     """Run ``csrc/tcn_trunk.cu`` on CUDA tensors (checked, or raises): ``(skip,
     hb, st)``, the residuals from its training mode when ``residuals`` (see
-    ``trunk_forward_plain``), else ``None``."""
+    ``trunk_forward_plain``), else ``None``. ``timing``, an int64 ``[grid,
+    8]`` tensor of the plan's grid, receives each CTA's nanoseconds in each
+    part of ``TRUNK_LAPS``."""
     if h0.device.type != "cuda" or any(t.device != h0.device for t in (we, wdw, wg, vecs)):
         raise ValueError(f"{name}: tensors on {[str(t.device) for t in (h0, we, wdw, wg, vecs)]}")
     b, k, cb, ch, n = _check(h0, we, wdw, wg, vecs, dils, taps)
     if cb % 8 or ch % 8:
         raise ValueError(f"{name}: cb={cb} and ch={ch} must be multiples of 8")
-    h = h0.to(torch.bfloat16).contiguous().clone()  # the carry, updated in place
-    skip = torch.zeros_like(h)
-    t1 = torch.empty((b, k, ch), dtype=torch.bfloat16, device=h.device)
+    plan = trunk_plan(b, k, cb, ch, taps, dils, **_device_limits(h0.device))
+    h0 = h0.to(torch.bfloat16).contiguous()  # read only
+    h = torch.empty_like(h0)  # the carry
+    skip = torch.empty_like(h0)
+    dev = h0.device
+    t1 = torch.empty((plan.groups, k, ch), dtype=torch.bfloat16, device=dev)
     t2 = torch.empty_like(t1)
-    row_tiles = math.ceil(k / _TILE_ROWS)
-    parts = row_tiles * math.ceil(ch / _TILE_COLS) + row_tiles
-    part = torch.empty((b * parts, 2), dtype=torch.float32, device=h.device)
-    we, wdw, wg, vecs = (t.contiguous() for t in (we, wdw, wg, vecs))
+    part = torch.empty((plan.groups * 2 * plan.ctas, 2), dtype=torch.float32, device=dev)
+    counters = torch.zeros(plan.groups, dtype=torch.int32, device=dev)
+    # both operands of the products K-major: the weights transposed
+    we_t = we.transpose(1, 2).contiguous()
+    wg_t = wg.transpose(1, 2).contiguous()
+    wdw, vecs = wdw.contiguous(), vecs.contiguous()
+    if timing is not None and (timing.shape != (plan.grid, len(TRUNK_LAPS))
+                               or timing.dtype != torch.int64 or timing.device != dev):
+        raise ValueError(f"{name}: timing must be int64 [{plan.grid}, {len(TRUNK_LAPS)}] on {dev}")
     dil_array = (ctypes.c_int * n)(*(int(d) for d in dils))
-    args = [h.data_ptr(), skip.data_ptr(), t1.data_ptr(), t2.data_ptr(), part.data_ptr(),
-            we.data_ptr(), wdw.data_ptr(), wg.data_ptr(), vecs.data_ptr(),
-            ctypes.addressof(dil_array)]
+    args = [h0.data_ptr(), h.data_ptr(), skip.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), we_t.data_ptr(), wdw.data_ptr(),
+            wg_t.data_ptr(), vecs.data_ptr(), ctypes.addressof(dil_array),
+            0 if timing is None else timing.data_ptr()]
     hb = st = None
     if residuals:
-        hb = torch.empty((n, b, k, cb), dtype=torch.bfloat16, device=h.device)
-        st = torch.empty((n, b, 4), dtype=torch.float32, device=h.device)
+        hb = torch.empty((n, b, k, cb), dtype=torch.bfloat16, device=dev)
+        st = torch.empty((n, b, 4), dtype=torch.float32, device=dev)
         args += [hb.data_ptr(), st.data_ptr()]
     lib = _build.library()
     entry = lib.sst_tcn_trunk_train if residuals else lib.sst_tcn_trunk
-    with torch.cuda.device(h.device):
-        code = entry(*args, b, k, cb, ch, vecs.shape[2], taps, n,
+    with torch.cuda.device(dev):
+        code = entry(*args, b, k, cb, ch, vecs.shape[2], taps, n, plan.groups, plan.ctas,
                      torch.cuda.current_stream().cuda_stream)
     _build.check(code, name)
     return skip, hb, st
+
+
+def trunk_phase_ms(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3,
+                   residuals: bool = False) -> dict:
+    """One timed run of the trunk kernel on CUDA tensors: the mean over its CTAs
+    of the milliseconds each spent in each part of ``TRUNK_LAPS``
+    (``%globaltimer``), with the plan's groups and CTAs."""
+    plan = trunk_plan(h0.shape[0], h0.shape[1], h0.shape[2], we.shape[2], taps, dils,
+                      **_device_limits(h0.device))
+    timing = torch.zeros((plan.grid, len(TRUNK_LAPS)), dtype=torch.int64, device=h0.device)
+    launch_trunk(h0, we, wdw, wg, vecs, dils=dils, taps=taps, name="trunk_phase_ms",
+                 residuals=residuals, timing=timing)
+    ms = (timing.double().mean(dim=0) / 1e6).tolist()
+    return {**dict(zip(TRUNK_LAPS, ms)), "groups": plan.groups, "ctas": plan.ctas}

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .tcn_cuda import _TILE_ROWS, _TILE_COLS, fold_canonical, launch_trunk, trunk_forward_plain
+from .tcn_cuda import fold_canonical, launch_trunk, trunk_forward_plain
 
 __all__ = [
     "tcn_trunk_train",
@@ -50,6 +50,9 @@ __all__ = [
 
 _MAX_TAPS = 8  # csrc/tcn_train_backward.cu's per-thread tap accumulators
 _SPLIT = 1024  # frames per chunk of the backward's weight-gradient products
+# csrc/tcn_common.cuh's WMMA tile (kBM, kBN), which sizes the backward's per-tile scratch
+_TILE_ROWS = 64
+_TILE_COLS = 128
 
 
 def tcn_train_forward_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3,

@@ -42,6 +42,7 @@ from speech_separation_tpu_torch.ops.tcn_cuda import (
     fold_canonical,
     tcn_trunk_cuda,
     tcn_trunk_plain,
+    trunk_plan,
     trunk_reference,
 )
 from speech_separation_tpu_torch.ops.tcn_train_cuda import (
@@ -192,6 +193,25 @@ def test_lstm_forward_kernels_match_plain(cuda_device, dtype, atol, dirs, batch,
         for g, w, name in zip(got, want, ("out", "gates", "c_all")):
             assert g.dtype == w.dtype and g.shape == w.shape, name
             assert (g.float() - w.float()).abs().max().item() <= bound, name
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, TRAIN_ATOL), (torch.bfloat16, TRAIN_BF16_ATOL)])
+def test_lstm_train_forward_at_the_training_bench_shape(cuda_device, dtype, atol):
+    """B = 32 at H = 496 over T = 501 steps, the training bench's shape: the
+    only one whose plan is one group a block over two row blocks, through
+    every step of a real utterance."""
+    xw, u, _ = _train_inputs(2, 32, 501, 496, cuda_device, seed=34, keep=False)
+    before = lstm_train_forward.launches
+    got = lstm_train_forward(xw, u, compute_dtype=dtype)
+    again = lstm_train_forward(xw, u, compute_dtype=dtype)
+    want = lstm_train_forward_plain(xw, u, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert lstm_train_forward.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    bound = _bound(atol, dtype, want)
+    for g, w, name in zip(got, want, ("out", "gates", "c_all")):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert (g.float() - w.float()).abs().max().item() <= bound, name
 
 
 def test_lstm_forward_refused_launch_raises(cuda_device):
@@ -408,7 +428,7 @@ def _trunk_inputs(batch, frames, cb, ch, dils, device, seed):
     )
 
 
-@pytest.mark.parametrize("frames", [130, 1100])  # ragged: no multiple of a 64-frame tile
+@pytest.mark.parametrize("frames", [130, 1100, 4003])  # ragged: no multiple of a 128-frame tile
 @pytest.mark.parametrize("cb,ch", [(32, 48), (128, 256)])
 def test_tcn_trunk_kernel_matches_plain(cuda_device, frames, cb, ch):
     dils = (1, 2, 4, 8, 16, 32, 64, 1)
@@ -423,6 +443,55 @@ def test_tcn_trunk_kernel_matches_plain(cuda_device, frames, cb, ch):
     assert torch.equal(got, again)  # fixed-order statistics: bit-identical reruns
     bound = TRUNK_BF16_REL * max(1.0, want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+def _check_trunk_kernel(inputs, dils):
+    """The trunk kernel and the training forward against the plain trunk:
+    within the bound, reruns bit-identical, one launch a call, the training
+    forward's skip the serving kernel's bit for bit. Each block's saved
+    statistics are held to the plain block run on the kernel's own saved
+    input of that block: at short K a gLN group is a few hundred values, and
+    the plain chain's inputs, carried through other bf16 roundings, move its
+    statistics by more than their fp32 noise."""
+    h0, we, wdw, wg, vecs = inputs
+    before = (tcn_trunk_cuda.launches, tcn_train_forward.launches)
+    got = tcn_trunk_cuda(*inputs, dils=dils)
+    again = tcn_trunk_cuda(*inputs, dils=dils)
+    skip, hb, st = tcn_train_forward(*inputs, dils=dils)
+    want = tcn_train_forward_plain(*inputs, dils=dils)
+    torch.cuda.synchronize()
+    assert (tcn_trunk_cuda.launches - before[0], tcn_train_forward.launches - before[1]) == (2, 1)
+    assert torch.equal(got, again) and torch.equal(skip, got)
+    for g, w in zip((got, hb), want[:2]):
+        bound = TRUNK_BF16_REL * max(1.0, w.float().abs().max().item())
+        assert g.shape == w.shape and (g.float() - w.float()).abs().max().item() <= bound
+    block_st = torch.cat([
+        tcn_train_forward_plain(hb[j], we[j:j + 1], wdw[j:j + 1], wg[j:j + 1], vecs[j:j + 1],
+                                dils=dils[j:j + 1])[2]
+        for j in range(len(dils))
+    ])
+    for col in range(4):  # mu1, 1/sigma1, mu2, 1/sigma2
+        assert _rel(st[..., col], block_st[..., col]) <= TRAIN_TRUNK_STATS_REL, col
+
+
+@pytest.mark.parametrize("cb,ch", [(32, 48), (128, 256)])
+def test_tcn_trunk_kernel_batch_past_the_items_in_flight(cuda_device, cb, ch):
+    """More items than the plan keeps in flight: each group walks several."""
+    dils = (1, 2, 4, 8, 16, 32, 64, 1)
+    props = torch.cuda.get_device_properties(cuda_device)
+    limits = dict(sms=props.multi_processor_count, smem_optin=props.shared_memory_per_block_optin,
+                  smem_per_sm=props.shared_memory_per_multiprocessor, l2_bytes=props.L2_cache_size)
+    batch = 2 * trunk_plan(64, 3000, cb, ch, 3, dils, **limits).groups + 1
+    assert -(-batch // trunk_plan(batch, 3000, cb, ch, 3, dils, **limits).groups) >= 2
+    _check_trunk_kernel(_trunk_inputs(batch, 3000, cb, ch, dils, cuda_device, seed=21), dils)
+
+
+@pytest.mark.parametrize("frames", [1, 40, 63])
+def test_tcn_trunk_kernel_dilation_64_on_short_items(cuda_device, frames):
+    """K below the largest dilation's halo: every tap of the dilation-64 blocks
+    but the centre reads the zero padding."""
+    dils = (1, 64, 2, 64, 32)
+    _check_trunk_kernel(_trunk_inputs(3, frames, 32, 48, dils, cuda_device, seed=22), dils)
 
 
 def test_tcn_trunk_kernel_raises(cuda_device):
@@ -490,7 +559,7 @@ def _rel(got, want):
     return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
 
 
-@pytest.mark.parametrize("frames", [130, 1100])  # ragged: no multiple of a 64-frame tile
+@pytest.mark.parametrize("frames", [130, 1100, 4003])  # ragged: no multiple of a tile
 @pytest.mark.parametrize("cb,ch", [(32, 48), (128, 256)])
 def test_tcn_train_kernels_match_plain(cuda_device, frames, cb, ch):
     dils = (1, 2, 4, 8, 16, 32, 64, 1)
