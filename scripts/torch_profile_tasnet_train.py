@@ -31,13 +31,7 @@ import time
 # (cuDNN's convolutions are implicit GEMMs and carry "gemm" in their names)
 GROUPS = (
     ("trunk forward (one persistent launch: A, B, C of every block)", ("::trunk_kernel",)),
-    ("trunk backward P1 recompute t1", ("::recompute_t1",)),
-    ("trunk backward P2 recompute d", ("::recompute_d",)),
-    ("trunk backward P3 project", ("::project_bwd", "::pack_drs")),
-    ("trunk backward P4 dd", ("::dd_bwd",)),
-    ("trunk backward P5 depthwise", ("::dwconv_bwd",)),
-    ("trunk backward P6 expand", ("::expand_bwd", "::dh_update")),
-    ("trunk backward weight gradients", ("::wgrad", "::sum_parts")),
+    ("trunk backward (one persistent launch: P1 to P6 of every block)", ("::backward_kernel",)),
     ("convolutions (cuDNN)", ("cudnn", "fprop", "dgrad", "wgrad", "implicit", "conv")),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "Kernel2")),
 )

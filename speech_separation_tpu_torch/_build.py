@@ -63,11 +63,11 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # hb, st, dskip, dh, we, wdw, wcat, vecs, dils (host int array), dwe, dwdw,
-    # dwcat, dvec, scratch16, scratch32, batch, frames, cb, ch, vdim, taps,
-    # blocks, stream
+    # dwcat, dvec, slabs, part, wpart, vpart, counters, timing, batch, frames,
+    # cb, ch, vdim, taps, blocks, groups, ctas, stream
     "sst_tcn_trunk_backward": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # flat, codebook, out, rows, dim, codes, stream
     "sst_nearest_code": (_P, _P, _P, _I, _I, _I, _P),

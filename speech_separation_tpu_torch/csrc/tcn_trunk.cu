@@ -100,10 +100,6 @@ using namespace tcn;
 // t2's stores; 4: h's and skip's stores; 8: (B)'s staging copies; 16: the
 // products. The port builds with 0.
 
-constexpr int kMaxBlocks = 256;  // dilations carried in the launch parameters
-constexpr int kMaxTaps = 8;      // python: TRUNK_MAX_TAPS
-constexpr int kSliceCh = 64;     // channels per (B) slice: 8 groups of 8 (python: TRUNK_SLICE)
-
 // The parts of a block that `timing` adds up (python: TRUNK_LAPS).
 enum Lap {
   kLapCoefs,      // (A): the block's vectors into smem (and, training, the saved h)
@@ -136,46 +132,6 @@ struct TrunkParams {
   int staging;  // bytes of smem before the block's Coefs: the ring or (B)'s buffers
   int dils[kMaxBlocks];
 };
-
-// One (B) staging buffer: a tile's rows and the taps' halo, 64 channels.
-__host__ __device__ inline int staging_buffer_bytes(int taps, int dil) {
-  return ((kEngRows + (taps - 1) * dil) * kSliceCh * 2 + 1023) / 1024 * 1024;
-}
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void arrive_release(int* p) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(1) : "memory");
-}
-
-__device__ __forceinline__ long long now_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// This CTA's writes so far are done; the release makes them visible to any
-// CTA whose acquire sees the arrival.
-__device__ __forceinline__ void group_arrive(int* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) arrive_release(counter);
-}
-
-// Until `target` arrivals: the acquire orders this CTA's later loads after the
-// arrivals' writes and the block barrier hands that on to every thread. A
-// barrier that never fills (a fault elsewhere) ends the launch with an error
-// after a few seconds instead of holding the card.
-__device__ __forceinline__ void group_wait(const int* counter, int target) {
-  if (threadIdx.x == 0) {
-    for (long spins = 0; load_acquire(counter) < target; ++spins)
-      if (spins > (1L << 24)) __trap();
-  }
-  __syncthreads();
-}
 
 // One item's gLN statistics from the group's n partials (written by other
 // CTAs, so read through L2), in rank order: out[0] = mean, out[1] = 1 /
@@ -291,13 +247,6 @@ __device__ __forceinline__ void store_acc(const float (&acc)[kEngAcc], float* ti
       *reinterpret_cast<float2*>(base + ((i >> 1) & 1) * 8 * pitch + col) =
           make_float2(acc[i], acc[i + 1]);
   }
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
 // (A)'s epilogue: v = prelu(acc + b_e) for the tile at (row0, col0), the fp32

@@ -9,7 +9,8 @@ ch]``, ``wcat [N, ch, 2cb]``, ``vecs [N, 10, vdim]``), a
   training mode), bit for bit, storing each block's input ``h`` and its four
   gLN statistics as residuals;
 - :func:`tcn_train_backward` — the blocks in reverse, recomputing the
-  hidden-width tensors from the residuals: ``csrc/tcn_train_backward.cu``.
+  hidden-width tensors from the residuals: ``csrc/tcn_train_backward.cu``,
+  one cooperative launch a call laid out by :func:`backward_plan`.
 
 Each has a plain PyTorch version with the same roundings, which the wrapper
 takes only for a tensor on the CPU; on a CUDA tensor it launches the kernel or
@@ -31,14 +32,28 @@ see ``csrc/tcn_train_backward.cu``) with its roundings.
 from __future__ import annotations
 
 import ctypes
-import math
+import dataclasses
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .tcn_cuda import fold_canonical, launch_trunk, trunk_forward_plain
+from .tcn_cuda import (
+    MAX_DILATION,
+    TRUNK_DEPTH,
+    TRUNK_MAX_BLOCKS,
+    TRUNK_MAX_TAPS,
+    TRUNK_SLICE,
+    TRUNK_STAGES,
+    TRUNK_TILE_ROWS,
+    TRUNK_L2_SHARE,
+    _RESERVED_BYTES,
+    _device_limits,
+    fold_canonical,
+    launch_trunk,
+    trunk_forward_plain,
+)
 
 __all__ = [
     "tcn_trunk_train",
@@ -46,13 +61,128 @@ __all__ = [
     "tcn_train_forward_plain",
     "tcn_train_backward",
     "tcn_train_backward_plain",
+    "BackwardPlan",
+    "backward_plan",
+    "backward_smem_bytes",
+    "TRUNK_BWD_LAPS",
+    "BWD_TILE_COLS",
+    "trunk_backward_phase_ms",
+    "launch_backward",
 ]
 
-_MAX_TAPS = 8  # csrc/tcn_train_backward.cu's per-thread tap accumulators
-_SPLIT = 1024  # frames per chunk of the backward's weight-gradient products
-# csrc/tcn_common.cuh's WMMA tile (kBM, kBN), which sizes the backward's per-tile scratch
-_TILE_ROWS = 64
-_TILE_COLS = 128
+# csrc/tcn_train_backward.cu's constants (tests hold them to the source)
+BWD_TILE_COLS = 128  # output columns a product pass: wgmma m64n128k16
+BWD_VEC_ROWS = 10  # rows of vecs (stack_canonical); the partials add one a tap
+BWD_COLRED = (2 + TRUNK_MAX_TAPS) * TRUNK_SLICE * 8  # floats of the column-sum exchange
+# the parts of a block csrc/tcn_train_backward.cu times with %globaltimer (its enum Lap)
+TRUNK_BWD_LAPS = ("coefficients", "P1 t1", "P2 d", "P3 drs", "P3 products", "P3 epilogue",
+                  "P3 dWcat", "P4 dd", "P5 taps", "P6 products", "P6 epilogue", "P6 dWe",
+                  "P6 dh", "waiting", "final sums")
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """One cooperative launch of ``groups`` x ``ctas`` CTAs, one an SM: item
+    ``i`` belongs to group ``i % groups``, whose CTAs walk its blocks in
+    reverse, CTA ``rank`` owning the 128-row tiles ``rank, rank + ctas, ...``
+    in every phase. Each CTA keeps an fp32 partial of every block's weight
+    gradients and column sums, summed over its tiles and items and then over
+    the CTAs once at the end."""
+
+    groups: int
+    ctas: int
+    tiles: int  # 128-row tiles an item
+    smem: int  # dynamic shared memory a CTA
+    item_bytes: int  # one item in flight that other tiles or blocks read: t1, dd, dh, dskip
+    slab_bytes: int  # one item's slabs that only their owner reads back: d, n2, dxh, drs
+    weight_bytes: int  # every block's weights
+    l2_budget: int
+    halo: int  # rows P2 and P5 stage beyond a tile: (taps - 1) x the largest dilation
+    weight_tiles: int  # 128 x 128 tiles of a block's dWcat and dWe
+    partial_bytes: int  # the CTAs' partials: weight-gradient tiles and column sums
+
+    @property
+    def grid(self) -> int:
+        return self.groups * self.ctas
+
+    @property
+    def resident(self) -> bool:
+        """Whether the items in flight and the weights fit the L2 budget."""
+        return self.groups * self.item_bytes + self.weight_bytes <= self.l2_budget
+
+
+def backward_smem_bytes(taps: int, max_dil: int, cb: int, ch: int) -> int:
+    """Dynamic shared memory of ``csrc/tcn_train_backward.cu``: a staging area,
+    the product's ring (128 output columns a pass), P4's two pairs of input
+    slots, or P5's two pairs of buffers (dd and t1, a tile's rows
+    and halo for a 64-channel slice), whichever is larger, aligned to 1,024
+    bytes; then, in fp32, a block's vectors and depthwise weights (``(8 +
+    taps) ch``), the column-sum exchange (``BWD_COLRED``), the block's
+    column sums (``(10 + taps) max(ch, 2 cb)``) and the item's sums of
+    bf16(dskip) (``cb``)."""
+    span = TRUNK_TILE_ROWS + (taps - 1) * max_dil
+    buf = -(-(span * TRUNK_SLICE * 2) // 1024) * 1024
+    ring = TRUNK_STAGES * (TRUNK_TILE_ROWS + BWD_TILE_COLS) * TRUNK_DEPTH * 2
+    vdim = max(ch, 2 * cb)
+    slots = 4 * TRUNK_TILE_ROWS * BWD_TILE_COLS * 2  # P4's two pairs of input slots
+    return 1024 + max(ring, slots, 4 * buf) + 4 * ((8 + taps) * ch + BWD_COLRED
+                                            + (BWD_VEC_ROWS + taps) * vdim + cb)
+
+
+def _weight_tiles(cb: int, ch: int) -> int:
+    rows, cols = TRUNK_TILE_ROWS, BWD_TILE_COLS
+    return -(-ch // rows) * -(-2 * cb // cols) + -(-cb // rows) * -(-ch // cols)
+
+
+def backward_plan(batch: int, frames: int, cb: int, ch: int, taps: int, dils: Sequence[int], *,
+                  sms: int, smem_optin: int, smem_per_sm: int, l2_bytes: int) -> BackwardPlan:
+    """The backward's launch plan on a card with ``sms`` SMs, ``smem_optin``
+    bytes of shared memory a block, ``smem_per_sm`` an SM and ``l2_bytes`` of
+    L2. Of the group counts, each group taking as many of the card's SMs as
+    its item has tiles, the one with the fewest rounds a CTA walks (items a
+    group times tiles a CTA), then the fewest items a group walks (each item a
+    group walks costs a CTA a read and a write of its weight-gradient
+    partials, and its phases' fixed costs), then the fewest groups. Unlike
+    the forward's plan it does not hold the items in flight to the L2 budget
+    (``resident`` says whether they fit): on an NVIDIA H100 at the training
+    shape, 16 groups of 8 CTAs took 13.4 ms where 4 groups of 32, which fit,
+    took 20.0 (PERF.md).
+    Raises where the shape is out of the kernel's range or the shared memory
+    does not fit."""
+    if batch < 1 or frames < 1 or not dils:
+        raise ValueError(f"tcn_train_backward: B={batch}, K={frames}, {len(dils)} blocks")
+    if not 1 <= taps <= TRUNK_MAX_TAPS or len(dils) > TRUNK_MAX_BLOCKS:
+        raise ValueError(f"tcn_train_backward: {taps} taps and {len(dils)} blocks; the kernel "
+                         f"takes at most {TRUNK_MAX_TAPS} taps and {TRUNK_MAX_BLOCKS} blocks")
+    if min(dils) < 1 or max(dils) > MAX_DILATION:
+        raise ValueError(f"tcn_train_backward: dilations {tuple(dils)} outside [1, {MAX_DILATION}]")
+    if cb < 8 or ch < 8 or cb % 8 or ch % 8:
+        raise ValueError(f"tcn_train_backward: cb={cb} and ch={ch} must be multiples of 8")
+    halo = (taps - 1) * max(dils)
+    smem = backward_smem_bytes(taps, max(dils), cb, ch)
+    if smem > smem_optin or smem + _RESERVED_BYTES > smem_per_sm:
+        raise ValueError(f"tcn_train_backward: {smem} bytes of shared memory a CTA; the card has "
+                         f"{smem_optin} a block")
+    tiles = -(-frames // TRUNK_TILE_ROWS)
+    item_bytes = frames * (2 * 2 * ch + 2 * 4 * cb)
+    slab_bytes = 2 * frames * (3 * ch + 2 * cb)
+    n = len(dils)
+    vdim = max(ch, 2 * cb)
+    weight_bytes = n * (2 * cb * ch * 2 + 2 * ch * 2 * cb + 4 * taps * ch + 4 * 10 * vdim)
+    budget = int(TRUNK_L2_SHARE * l2_bytes)
+    best = None
+    for groups in range(1, min(batch, sms) + 1):
+        ctas = min(tiles, sms // groups)
+        visits = -(-batch // groups)
+        key = (visits * -(-tiles // ctas), visits, groups)
+        if best is None or key < best[0]:
+            best = (key, groups, ctas)
+    _, groups, ctas = best
+    wtiles = _weight_tiles(cb, ch)
+    partial = 4 * groups * ctas * n * (wtiles * TRUNK_TILE_ROWS * BWD_TILE_COLS
+                                       + (BWD_VEC_ROWS + taps) * vdim)
+    return BackwardPlan(groups, ctas, tiles, smem, item_bytes, slab_bytes, weight_bytes, budget,
+                        halo, wtiles, partial)
 
 
 def tcn_train_forward_plain(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3,
@@ -101,13 +231,54 @@ def _check_backward(dskip, hb, st, we, wdw, wcat, vecs, dils, taps):
 
 
 def tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequence[int],
-                             taps: int = 3, storage: torch.dtype = torch.bfloat16):
+                             taps: int = 3, storage: torch.dtype = torch.bfloat16,
+                             ctas: int | None = None, groups: int = 1):
     """Plain version of :func:`tcn_train_backward`, on any device: the TPU
-    backward's arithmetic, rounding to ``storage`` where it stores a slab."""
+    backward's arithmetic, rounding to ``storage`` where it stores a slab.
+
+    ``ctas`` (with ``groups``) sums in the kernel's order for a plan of that
+    many CTAs a group, a model of its reductions: each item's gLN means from
+    each CTA's partial over the 128-row tiles it owns, the partials in rank
+    order; each weight gradient and column sum from each CTA's partial over
+    its tiles of its items (items in the order the group walks them), the
+    partials in CTA order. By default each is one tensor sum."""
     b, k, cb, ch, n = _check_backward(dskip, hb, st, we, wdw, wcat, vecs, dils, taps)
     dev = dskip.device
     inv_n = torch.tensor(1.0 / (k * ch), dtype=torch.float32, device=dev)
     rows = torch.arange(k, device=dev)
+    tiles = -(-k // TRUNK_TILE_ROWS)
+    spans = None  # per CTA, in CTA order: its (item, first row, end row), in walking order
+    if ctas is not None:
+        spans = [[(item, t * TRUNK_TILE_ROWS, min((t + 1) * TRUNK_TILE_ROWS, k))
+                  for item in range(g, b, groups) for t in range(rank, tiles, ctas)]
+                 for g in range(groups) for rank in range(ctas)]
+
+    def fsum(contrib):
+        """The sum over items and frames of ``contrib(items, r0, r1)``, the
+        contribution of frames ``[r0, r1)`` of ``items`` (a slice)."""
+        if spans is None:
+            return contrib(slice(None), 0, k)
+        total = None
+        for cta in spans:
+            part = None
+            for item, r0, r1 in cta:
+                c = contrib(slice(item, item + 1), r0, r1)
+                part = c if part is None else part + c
+            if part is not None:
+                total = part if total is None else total + part
+        return total
+
+    def mean(x: torch.Tensor) -> torch.Tensor:
+        """Per item, the sum of ``x`` over (K, ch) times ``inv_n``, ``[B, 1, 1]``."""
+        if ctas is None:
+            s = x.sum(dim=(1, 2))
+        else:
+            rank = (rows // TRUNK_TILE_ROWS) % ctas
+            part = x.new_zeros((b, ctas)).index_add_(1, rank, x.sum(dim=2))
+            s = part[:, 0]
+            for r in range(1, ctas):
+                s = s + part[:, r]
+        return (s * inv_n)[:, None, None]
 
     def rnd(x: torch.Tensor) -> torch.Tensor:
         return x.to(storage).float()
@@ -116,7 +287,7 @@ def tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequen
         """``x[:, u + off]`` along frames, zero outside ``[0, K)``."""
         if off >= 0:
             return F.pad(x[:, off:], (0, 0, 0, min(off, k)))
-        return F.pad(x[:, : k + off], (0, 0, min(-off, k), 0))
+        return F.pad(x[:, : max(k + off, 0)], (0, 0, min(-off, k), 0))
 
     vdim = vecs.shape[2]
     dh = torch.zeros((b, k, cb), dtype=torch.float32, device=dev)
@@ -159,41 +330,45 @@ def tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequen
         n2 = rnd(g2 * xh2 + b2)
         drs = rnd(torch.cat([dh, ds], dim=-1))
         dn2 = drs @ wcat_j.T
-        dwcat[j] = torch.einsum("bkc,bko->co", n2, drs)
-        dvec[j, 6, : 2 * cb] = drs.sum(dim=(0, 1))
-        dvec[j, 4, :ch] = (dn2 * xh2).sum(dim=(0, 1))
-        dvec[j, 5, :ch] = dn2.sum(dim=(0, 1))
+        dwcat[j] = fsum(lambda i, r0, r1: torch.einsum("bkc,bko->co", n2[i, r0:r1], drs[i, r0:r1]))
+        dvec[j, 6, : 2 * cb] = fsum(lambda i, r0, r1: drs[i, r0:r1].sum(dim=(0, 1)))
+        prod = dn2 * xh2
+        dvec[j, 4, :ch] = fsum(lambda i, r0, r1: prod[i, r0:r1].sum(dim=(0, 1)))
+        dvec[j, 5, :ch] = fsum(lambda i, r0, r1: dn2[i, r0:r1].sum(dim=(0, 1)))
         dxh2 = dn2 * g2
-        ma2 = (dxh2.sum(dim=(1, 2)) * inv_n)[:, None, None]
-        mb2 = ((dxh2 * xh2).sum(dim=(1, 2)) * inv_n)[:, None, None]
+        ma2 = mean(dxh2)
+        mb2 = mean(dxh2 * xh2)
 
         # P4: gLN2 and PReLU2 backward
         dt2 = s2 * (rnd(dxh2) - ma2 - xh2 * mb2)
         ddc = torch.where(d >= 0, dt2, a2 * dt2)
-        dvec[j, 9, :ch] = (dt2 * torch.clamp(d, max=0.0)).sum(dim=(0, 1))
-        dvec[j, 3, :ch] = ddc.sum(dim=(0, 1))
+        prod = dt2 * torch.clamp(d, max=0.0)
+        dvec[j, 9, :ch] = fsum(lambda i, r0, r1: prod[i, r0:r1].sum(dim=(0, 1)))
+        dvec[j, 3, :ch] = fsum(lambda i, r0, r1: ddc[i, r0:r1].sum(dim=(0, 1)))
         dd = rnd(ddc)
 
         # P5: the dilated taps transposed, dw, gLN1 sums
         dn1 = torch.zeros_like(dd)
         for t, rel in enumerate(rels):
             dn1 = dn1 + w[t] * shift(dd, -rel)
-            n1 = shift(av1 * t1 + bv1, rel)  # the normalised input, zero-padded
-            dwdw[j, t] = (dd * n1).sum(dim=(0, 1))
+            prod = dd * shift(av1 * t1 + bv1, rel)  # the normalised input, zero-padded
+            dwdw[j, t] = fsum(lambda i, r0, r1: prod[i, r0:r1].sum(dim=(0, 1)))
         xh1 = (t1 - mu1) * s1
-        dvec[j, 1, :ch] = (dn1 * xh1).sum(dim=(0, 1))
-        dvec[j, 2, :ch] = dn1.sum(dim=(0, 1))
+        prod = dn1 * xh1
+        dvec[j, 1, :ch] = fsum(lambda i, r0, r1: prod[i, r0:r1].sum(dim=(0, 1)))
+        dvec[j, 2, :ch] = fsum(lambda i, r0, r1: dn1[i, r0:r1].sum(dim=(0, 1)))
         dxh1 = dn1 * g1
-        ma1 = (dxh1.sum(dim=(1, 2)) * inv_n)[:, None, None]
-        mb1 = ((dxh1 * xh1).sum(dim=(1, 2)) * inv_n)[:, None, None]
+        ma1 = mean(dxh1)
+        mb1 = mean(dxh1 * xh1)
 
         # P6: gLN1 and PReLU1 backward, the expand product's gradients
         dt1 = s1 * (rnd(dxh1) - ma1 - xh1 * mb1)
         dt1p = torch.where(y >= 0, dt1, a1 * dt1)
-        dvec[j, 8, :ch] = (dt1 * torch.clamp(y, max=0.0)).sum(dim=(0, 1))
-        dvec[j, 0, :ch] = dt1p.sum(dim=(0, 1))
+        prod = dt1 * torch.clamp(y, max=0.0)
+        dvec[j, 8, :ch] = fsum(lambda i, r0, r1: prod[i, r0:r1].sum(dim=(0, 1)))
+        dvec[j, 0, :ch] = fsum(lambda i, r0, r1: dt1p[i, r0:r1].sum(dim=(0, 1)))
         dt1p = rnd(dt1p)
-        dwe[j] = torch.einsum("bkc,bko->co", h, dt1p)
+        dwe[j] = fsum(lambda i, r0, r1: torch.einsum("bkc,bko->co", h[i, r0:r1], dt1p[i, r0:r1]))
         dh = dh + dt1p @ we_j.T
     return dh, dwe, dwdw, dwcat, dvec
 
@@ -206,17 +381,26 @@ def tcn_train_backward(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequence[int
     residuals ``hb``, ``st``. ``we``, ``wcat`` are used in bf16."""
     if dskip.device.type == "cpu":
         return tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, dils=dils, taps=taps)
+    grads = launch_backward(dskip, hb, st, we, wdw, wcat, vecs, dils=dils, taps=taps,
+                            name="tcn_train_backward")
+    tcn_train_backward.launches += 1
+    return grads
+
+
+def launch_backward(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequence[int], taps: int,
+                    name: str, timing: torch.Tensor | None = None):
+    """Run ``csrc/tcn_train_backward.cu`` on CUDA tensors (checked, or raises)
+    in one cooperative launch of :func:`backward_plan`'s grid. ``timing``, an
+    int64 ``[grid, len(TRUNK_BWD_LAPS)]`` tensor, receives each CTA's
+    nanoseconds in each part of ``TRUNK_BWD_LAPS``."""
     tensors = (dskip, hb, st, we, wdw, wcat, vecs)
     if dskip.device.type != "cuda" or any(t.device != dskip.device for t in tensors):
-        raise ValueError(f"tcn_train_backward: tensors on {[str(t.device) for t in tensors]}")
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}")
     b, k, cb, ch, n = _check_backward(dskip, hb, st, we, wdw, wcat, vecs, dils, taps)
-    if cb % 8 or ch % 8:
-        raise ValueError(f"tcn_train_backward: cb={cb} and ch={ch} must be multiples of 8")
-    if taps > _MAX_TAPS:
-        raise ValueError(f"tcn_train_backward: {taps} taps, at most {_MAX_TAPS}")
     if hb.dtype != torch.bfloat16:
-        raise TypeError(f"tcn_train_backward: hb must be bf16, got {hb.dtype}")
+        raise TypeError(f"{name}: hb must be bf16, got {hb.dtype}")
     dev = dskip.device
+    plan = backward_plan(b, k, cb, ch, taps, dils, **_device_limits(dev))
     vdim = vecs.shape[2]
     hb, st = hb.contiguous(), st.float().contiguous()
     dskip = dskip.float().contiguous()
@@ -227,27 +411,44 @@ def tcn_train_backward(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequence[int
     dwdw = torch.empty((n, taps, ch), dtype=torch.float32, device=dev)
     dwcat = torch.empty((n, ch, 2 * cb), dtype=torch.float32, device=dev)
     dvec = torch.empty((n, 10, vdim), dtype=torch.float32, device=dev)
-    frames = b * k
-    tiles = math.ceil(k / _TILE_ROWS)
-    parts = b * tiles
-    scratch16 = torch.empty(frames * (2 * cb + 5 * ch), dtype=torch.bfloat16, device=dev)
-    scratch32 = torch.empty(
-        2 * parts * math.ceil(ch / _TILE_COLS) + 2 * parts + parts * 10 * vdim + parts * taps * ch
-        + math.ceil(frames / _SPLIT) * max(ch * 2 * cb, cb * ch),
-        dtype=torch.float32, device=dev,
-    )
+    slabs = torch.empty(plan.groups * k * (5 * ch + 2 * cb), dtype=torch.bfloat16, device=dev)
+    part = torch.empty(plan.groups * 2 * plan.ctas * 2, dtype=torch.float32, device=dev)
+    wpart = torch.empty(plan.grid * n * plan.weight_tiles * TRUNK_TILE_ROWS * BWD_TILE_COLS,
+                        dtype=torch.float32, device=dev)
+    vpart = torch.empty(plan.grid * n * (BWD_VEC_ROWS + taps) * vdim, dtype=torch.float32,
+                        device=dev)
+    counters = torch.zeros(plan.groups + 1, dtype=torch.int32, device=dev)
+    if timing is not None and (timing.shape != (plan.grid, len(TRUNK_BWD_LAPS))
+                               or timing.dtype != torch.int64 or timing.device != dev):
+        raise ValueError(f"{name}: timing must be int64 [{plan.grid}, {len(TRUNK_BWD_LAPS)}] "
+                         f"on {dev}")
     dil_array = (ctypes.c_int * n)(*(int(d) for d in dils))
     with torch.cuda.device(dev):
         code = _build.library().sst_tcn_trunk_backward(
             hb.data_ptr(), st.data_ptr(), dskip.data_ptr(), dh.data_ptr(), we.data_ptr(),
-            wdw.data_ptr(), wcat.data_ptr(), vecs.data_ptr(), ctypes.addressof(dil_array),
-            dwe.data_ptr(), dwdw.data_ptr(), dwcat.data_ptr(), dvec.data_ptr(),
-            scratch16.data_ptr(), scratch32.data_ptr(), b, k, cb, ch, vdim, taps, n,
+            wdw.data_ptr(), wcat.data_ptr(), vecs.data_ptr(),
+            ctypes.addressof(dil_array), dwe.data_ptr(), dwdw.data_ptr(), dwcat.data_ptr(),
+            dvec.data_ptr(), slabs.data_ptr(), part.data_ptr(), wpart.data_ptr(),
+            vpart.data_ptr(), counters.data_ptr(), 0 if timing is None else timing.data_ptr(),
+            b, k, cb, ch, vdim, taps, n, plan.groups, plan.ctas,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(code, "tcn_train_backward")
-    tcn_train_backward.launches += 1
+    _build.check(code, name)
     return dh, dwe, dwdw, dwcat, dvec
+
+
+def trunk_backward_phase_ms(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequence[int],
+                            taps: int = 3) -> dict:
+    """One timed run of the backward kernel on CUDA tensors: the mean over its
+    CTAs of the milliseconds each spent in each part of ``TRUNK_BWD_LAPS``
+    (``%globaltimer``), with the plan's groups and CTAs."""
+    plan = backward_plan(hb.shape[1], hb.shape[2], hb.shape[3], we.shape[2], taps, dils,
+                         **_device_limits(hb.device))
+    timing = torch.zeros((plan.grid, len(TRUNK_BWD_LAPS)), dtype=torch.int64, device=hb.device)
+    launch_backward(dskip, hb, st, we, wdw, wcat, vecs, dils=dils, taps=taps,
+                    name="trunk_backward_phase_ms", timing=timing)
+    ms = (timing.double().mean(dim=0) / 1e6).tolist()
+    return {**dict(zip(TRUNK_BWD_LAPS, ms)), "groups": plan.groups, "ctas": plan.ctas}
 
 
 tcn_train_backward.launches = 0

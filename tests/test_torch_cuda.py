@@ -39,6 +39,7 @@ from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply
 from speech_separation_tpu_torch.ops.stft import stft
 from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda, stft_fft_plain
 from speech_separation_tpu_torch.ops.tcn_cuda import (
+    _device_limits,
     fold_canonical,
     tcn_trunk_cuda,
     tcn_trunk_plain,
@@ -46,12 +47,16 @@ from speech_separation_tpu_torch.ops.tcn_cuda import (
     trunk_reference,
 )
 from speech_separation_tpu_torch.ops.tcn_train_cuda import (
+    TRUNK_BWD_LAPS,
+    launch_backward,
     tcn_train_backward,
     tcn_train_backward_plain,
     tcn_train_forward,
     tcn_train_forward_plain,
     tcn_trunk_train,
+    trunk_backward_phase_ms,
 )
+from speech_separation_tpu_torch.ops.tcn_train_cuda import backward_plan as tcn_backward_plan
 from speech_separation_tpu_torch.ops.vq_cuda import nearest_code, nearest_code_plain
 from speech_separation_tpu_torch.separate.pipeline import make_separate_fn
 
@@ -578,12 +583,20 @@ def test_tcn_train_kernels_match_plain(cuda_device, frames, cb, ch):
     for col in range(4):  # mu1, 1/sigma1, mu2, 1/sigma2
         assert _rel(st[..., col], want[2][..., col]) <= TRAIN_TRUNK_STATS_REL, col
     dskip = _normal((2, frames, cb), seed=60).to(cuda_device)
-    got = tcn_train_backward(dskip, hb, st, we, wdw, wcat, vecs, dils=dils)
-    again = tcn_train_backward(dskip, hb, st, we, wdw, wcat, vecs, dils=dils)
-    ref = tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, dils=dils)
-    chain = tcn_train_backward_plain(dskip, want[1], want[2], we, wdw, wcat, vecs, dils=dils)
-    torch.cuda.synchronize()
+    _hold_backward(dskip, hb, st, want, (we, wdw, wcat, vecs), dils)
     assert (tcn_train_forward.launches - before[0], tcn_train_backward.launches - before[1]) == (1, 2)
+
+
+def _hold_backward(dskip, hb, st, want, canon, dils):
+    """The backward kernel on the kernel forward's residuals (hb, st) against
+    the plain backward on the same and against the plain chain (the plain
+    backward on the plain forward's residuals ``want``), per gradient and used
+    dvec row; rerun bit-identical."""
+    got = tcn_train_backward(dskip, hb, st, *canon, dils=dils)
+    again = tcn_train_backward(dskip, hb, st, *canon, dils=dils)
+    ref = tcn_train_backward_plain(dskip, hb, st, *canon, dils=dils)
+    chain = tcn_train_backward_plain(dskip, want[1], want[2], *canon, dils=dils)
+    torch.cuda.synchronize()
     for name, g, a, r, c in zip(("dh0", "dwe", "dwdw", "dwcat", "dvec"), got, again, ref, chain):
         assert g.dtype == torch.float32 and g.shape == r.shape, name
         assert torch.equal(g, a), name  # fixed-order sums: bit-identical reruns
@@ -593,6 +606,40 @@ def test_tcn_train_kernels_match_plain(cuda_device, frames, cb, ch):
             assert _rel(gp, rp) <= TRAIN_TRUNK_GRAD_REL, (what, _rel(gp, rp))
             assert _rel(gp, cp) <= TRAIN_TRUNK_CHAIN_REL, (what, _rel(gp, cp))
     assert not got[4][:, 7].any()
+
+
+# the backward plan's edges at full width (21 blocks, dilations 1 to 64):
+# several tiles a CTA, more items than SMs (a group walks two), items below
+# the dilation-64 halo, one item
+@pytest.mark.parametrize("batch,frames", [(7, 3000), (140, 50), (3, 50), (1, 700)])
+def test_tcn_train_backward_at_the_plan_edges(cuda_device, batch, frames):
+    dils = tuple(2**x for _ in range(3) for x in range(7))
+    h0, *canon = _canonical_inputs(batch, frames, 128, 256, dils, cuda_device, seed=55)
+    folded = fold_canonical(*canon)
+    _, hb, st = tcn_train_forward(h0, *folded, dils=dils)
+    want = tcn_train_forward_plain(h0, *folded, dils=dils)
+    dskip = _normal((batch, frames, 128), seed=65).to(cuda_device)
+    before = tcn_train_backward.launches
+    _hold_backward(dskip, hb, st, want, canon, dils)
+    assert tcn_train_backward.launches - before == 2  # one launch a call
+
+
+def test_tcn_train_backward_laps(cuda_device):
+    """The timed instance of the backward: one lap a part of a block for every
+    CTA of the plan, and the same gradients as the untimed one."""
+    dils = (1, 2, 4, 8)
+    h0, *canon = _canonical_inputs(2, 600, 32, 48, dils, cuda_device, seed=75)
+    _, hb, st = tcn_train_forward(h0, *fold_canonical(*canon), dils=dils)
+    dskip = _normal((2, 600, 32), seed=76).to(cuda_device)
+    laps = trunk_backward_phase_ms(dskip, hb, st, *canon, dils=dils)
+    plan = tcn_backward_plan(2, 600, 32, 48, 3, dils, **_device_limits(torch.device(cuda_device)))
+    assert (laps["groups"], laps["ctas"]) == (plan.groups, plan.ctas)
+    assert all(laps[p] >= 0.0 for p in TRUNK_BWD_LAPS) and laps["P5 taps"] > 0.0
+    got = tcn_train_backward(dskip, hb, st, *canon, dils=dils)
+    grads = launch_backward(dskip, hb, st, *canon, dils=dils, taps=3, name="timed",
+                            timing=torch.zeros((plan.grid, len(TRUNK_BWD_LAPS)), dtype=torch.int64,
+                                               device=cuda_device))
+    assert all(torch.equal(a, b) for a, b in zip(got, grads))
 
 
 def test_tcn_trunk_train_grads_match_autograd(cuda_device):
@@ -637,6 +684,9 @@ def test_tcn_train_kernels_raise(cuda_device):
         tcn_train_backward(h0[:, :-1], hb, st, we, wdw, wcat, vecs, dils=dils)
     with pytest.raises(ValueError, match="tensors on"):
         tcn_train_backward(h0, hb, st.cpu(), we, wdw, wcat, vecs, dils=dils)
+    # no fallback: a shape outside the kernel's plan raises
+    with pytest.raises(ValueError, match="dilations"):
+        tcn_train_backward(h0, hb, st, we, wdw, wcat, vecs, dils=(1, 2, 4, 65))
 
 
 def _near_tie_rows(flat, codebook, got, want):
