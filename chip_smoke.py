@@ -79,8 +79,9 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    chain; bit-identical reruns; the same at the backward plan's edges, B=7 ×
    K=3000 (several tiles a CTA), B=140 × K=50 (more items than SMs: a group
    walks two), B=3 × K=50 (below the dilation-64 halo) and B=1 × K=4000, the
-   forward's statistics reported, not held, at K=50; and the plain passes in
-   fp32 storage against autograd through ``trunk_reference``;
+   forward's statistics at K=50 held against each plain block run on the
+   kernel's own saved input (against the plain chain's, reported); and the
+   plain passes in fp32 storage against autograd through ``trunk_reference``;
 13. Conv-TasNet training path — ``cli train`` with ``variant="tasnet"``,
    ``tasnet_pallas_trunk=true`` for 2 epochs on a synthetic fixture (tr 8,
    cv 4) at full width, then ``cli separate --kernel pallas`` from its
@@ -95,10 +96,12 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    operations of one backward call under the profiler (one backward kernel
    launch) and both kernels' time by part of a block;
 15. the nearest-code kernel against its plain version at the codec's shapes
-   (t3tok at 64 x 8 s: deep N=12,800 D=64 K=512, skip N=51,200 D=16 K=512)
-   and a ragged N=12,803 D=13 K=509, every differing pick a near tie by
-   float64 distances; a duplicated codebook, where every exact tie must pick
-   the lower index;
+   (t3tok at 64 x 8 s: deep N=12,800 D=64 K=512, one skip group N=51,200
+   D=16 K=512, and a skip stage as one grouped call, 4 groups of S=16 read in
+   place from a wider residual), a ragged N=12,803 G=3 S=13 K=509 and a
+   codebook streamed past the shared memory (N=700 D=256 K=1,024), every
+   differing pick a near tie by float64 distances, reruns bit-identical; a
+   duplicated codebook, where every exact tie must pick the lower index;
 16. the codec path — the committed trained t3tok (``params_ep38.npz``) as a
    port checkpoint, then ``cli codec-encode``, ``codec-decode`` and
    ``codec-roundtrip`` on 4 hard-profile utterances, the reconstruction's
@@ -110,8 +113,11 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 17. codec timing: ``codes``, the deterministic forward (kernel and plain
    paths) and ``decode_codes`` at 64 x 8 s in x-real-time, the t3tok train
    step at 8 x 8 s (the committed run's batch size) in audio-seconds trained
-   per second, and the kernel alone at both shapes against its plain version,
-   on the device (queued behind a sleep kernel) and paced by the host.
+   per second; one ``codes`` call under the profiler (4 kernel launches: 2
+   deep and 2 skip stages) and the kernel's device time in it; and the kernel
+   alone at the deep, one-group skip and grouped skip-stage shapes against its
+   plain version, on the device (queued behind a sleep kernel) and paced by
+   the host, the timed calls' own outputs held against the plain version's.
 
 Every kernel's entry in the kernels line carries its bound: the larger of its
 compulsory bytes (each input read once, each output written once) over 3.35
@@ -180,6 +186,13 @@ TRAIN_TRUNK_GRAD_REL = 3e-2
 # means over an item's 1M elements of t1 and t2, which differ from the plain
 # version's by a few flipped bf16 roundings. Measured 1.7e-5 over all four.
 TRAIN_TRUNK_STATS_REL = 1e-4
+# Below the dilation-64 halo (K = 50) a block's statistics are means over
+# 12,800 values, so a few bf16 flips that the chain carries through earlier
+# blocks move them more (1.5e-4 to 2.4e-4 rel L2 against the plain chain's).
+# They are held against each plain block run on the kernel's own saved input
+# hb[j], where only the block's own summation order and the flips it makes
+# itself differ: the same 1e-4.
+TRAIN_TRUNK_OWN_STATS_REL = 1e-4
 STAT_COLUMNS = ("mu1", "1/sigma1", "mu2", "1/sigma2")
 DVEC_ROWS = (0, 1, 2, 3, 4, 5, 6, 8, 9)  # stack_canonical's rows; row 7 is unused
 # The chain, kernel forward then kernel backward, against plain forward then
@@ -823,11 +836,25 @@ def flat_parts(parts: dict) -> dict:
     return out
 
 
+def own_input_stats(hb, folded, dils):
+    """Each block's statistics ``[N, B, 4]`` from the plain block run alone on
+    ``hb[j]``, the input the kernel saved for it."""
+    import torch
+
+    from speech_separation_tpu_torch.ops.tcn_cuda import trunk_forward_plain
+
+    return torch.stack([
+        trunk_forward_plain(hb[j], *(t[j:j + 1] for t in folded), dils=(d,), residuals=True)[2][0]
+        for j, d in enumerate(dils)])
+
+
 def check_training_trunk(h0, dskip, canon, folded, dils, *, serving: bool = False,
                          hold_stats: bool = True) -> dict:
     """The training kernels at (h0, dskip) against their plain versions: the
     forward's skip and saved h (max abs, 3e-2 x max(1, peak)) and each
-    statistic column (rel L2; reported but not held without ``hold_stats``);
+    statistic column (rel L2 against the plain chain's; without
+    ``hold_stats`` reported, and held instead against each plain block on the
+    kernel's own saved input, :func:`own_input_stats`);
     the backward on the kernel's residuals against the plain backward on the
     same (rel L2 per gradient and used dvec row), and the kernel chain against
     the plain chain; both kernels rerun bit-identical, and with ``serving``
@@ -860,9 +887,14 @@ def check_training_trunk(h0, dskip, canon, folded, dils, *, serving: bool = Fals
         fwd[what] = ((got.float() - ref.float()).abs().max().item(), TRUNK_BF16_TOL * max(1.0, peak))
     for i, col in enumerate(STAT_COLUMNS):
         fwd[col] = (rel_l2(st[..., i], want[2][..., i]), TRAIN_TRUNK_STATS_REL)
+    if not hold_stats:
+        own = own_input_stats(hb, folded, dils)
+        for i, col in enumerate(STAT_COLUMNS):
+            fwd[f"{col} (own input)"] = (rel_l2(st[..., i], own[..., i]), TRAIN_TRUNK_OWN_STATS_REL)
     bwd = {name: rel_l2_parts(name, g, r) for name, g, r in zip(GRAD_NAMES, grads, plain)}
     chained = {name: rel_l2_parts(name, g, r) for name, g, r in zip(GRAD_NAMES, grads, chain)}
-    bad = {k: v for k, v in fwd.items() if not v[0] <= v[1] and (hold_stats or k in ("skip", "h"))}
+    held = [k for k in fwd if hold_stats or k in ("skip", "h") or k.endswith("(own input)")]
+    bad = {k: fwd[k] for k in held if not fwd[k][0] <= fwd[k][1]}
     bad.update({f"backward {k}": v for k, v in flat_parts(bwd).items()
                 if not v <= TRAIN_TRUNK_GRAD_REL})
     bad.update({f"chain {k}": v for k, v in flat_parts(chained).items()
@@ -878,7 +910,8 @@ def check_training_trunk(h0, dskip, canon, folded, dils, *, serving: bool = Fals
               + "; ".join(f"{k} {v[0]:.3e} {'<=' if v[0] <= v[1] else '>'} {v[1]:.3e}"
                           for k, v in fwd.items())
               + " (skip, h max abs, 3e-2 x max(1, peak); statistics rel L2 per column"
-              + ("" if hold_stats else ", reported, not held") + "); backward "
+              + ("" if hold_stats else ", against the plain chain's reported, against the "
+                 "plain blocks on the kernel's own input held") + "); backward "
               f"on the same residuals, rel L2 <= {TRAIN_TRUNK_GRAD_REL}: "
               + "; ".join(f"{k} {v:.2e}" for k, v in flat_parts(bwd).items())
               + f"; kernel chain against plain chain, rel L2 <= {TRAIN_TRUNK_CHAIN_REL}: "
@@ -942,8 +975,8 @@ def tasnet_training_phases(device, gen) -> list[dict]:
     # the backward plan's edges: several tiles a CTA (B=7), more items than
     # SMs (B=140: a group walks two, adding to its partials), items below the
     # dilation-64 halo (where the forward's statistics of 12,800 values a
-    # block are reported, not held: 1e-4 is phase 12's bound at K >= 4000),
-    # one item
+    # block are held against the plain blocks on the kernel's own input, the
+    # plain chain's reported), one item
     for batch, frames in ((7, 3000), (140, 50), (3, 50), (1, 4000)):
         h0 = torch.randn(batch, frames, TRUNK_CB, generator=gen, device=device)
         dskip = torch.randn(batch, frames, TRUNK_CB, generator=gen, device=device)
@@ -1213,6 +1246,15 @@ def near_tie_gaps(flat, codebook, got, want) -> list[float]:
     return gaps.tolist() if len(rows) else []
 
 
+def grouped_near_ties(flat, codebook, got, want) -> list[float]:
+    """:func:`near_tie_gaps` of a 2-D call, or of each group of a grouped one."""
+    if codebook.dim() == 2:
+        return near_tie_gaps(flat, codebook, got, want)
+    sub = codebook.shape[1]
+    return [gap for g in range(codebook.shape[0]) for gap in near_tie_gaps(
+        flat[:, g * sub:(g + 1) * sub], codebook[g], got[:, g], want[:, g])]
+
+
 def rvq_near_ties(rvq, latent, got, want) -> tuple[int, list[float]]:
     """Mismatched positions of two residual-VQ code streams (stage-major), and
     the near-tie gaps of those whose earlier stages agree; a position whose
@@ -1251,30 +1293,45 @@ def codec_phases(device, gen) -> dict:
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
     from speech_separation_tpu_torch.losses import summed_squared_error
     from speech_separation_tpu_torch.models.vqvae import VqVaeT3Tok
-    from speech_separation_tpu_torch.ops.vq_cuda import nearest_code, nearest_code_plain
+    from speech_separation_tpu_torch.ops.tcn_cuda import _device_limits
+    from speech_separation_tpu_torch.ops.vq_cuda import nearest_code, nearest_code_plain, search_plan
     from speech_separation_tpu_torch.utils import VaeTrainConfig, load_config
     from speech_separation_tpu_torch.weights import load_params_npz
 
-    # 15. the kernel against its plain version at the main path's shapes
+    # 15. the kernel against its plain version at the main path's shapes: the
+    # deep search and one skip group as 2-D calls, a skip stage as one grouped
+    # call reading its groups in place from a wider residual, a ragged shape
+    # and a codebook past the shared memory (streamed)
     frames = int(BENCH_SECONDS * SAMPLE_RATE) // 40  # 1,600 frames of 40 samples
-    shapes = {"deep": (CODEC_BATCH * frames // 8, 64, 512),
-              "skip": (CODEC_BATCH * frames // 2, 16, 512),
-              "ragged": (12_803, 13, 509)}
+    shapes = {"deep": (CODEC_BATCH * frames // 8, 1, 64, 512),
+              "skip": (CODEC_BATCH * frames // 2, 1, 16, 512),
+              "skip stage": (CODEC_BATCH * frames // 2, 4, 16, 512),
+              "ragged": (12_803, 3, 13, 509),
+              "streamed": (700, 1, 256, 1024)}
+    limits = _device_limits(device)
     gaps, mismatches = [], {}
-    for label, (n, d, k) in shapes.items():
-        flat = torch.randn(n, d, generator=gen, device=device)
-        codebook = torch.randn(d, k, generator=gen, device=device)
-        got, want = nearest_code(flat, codebook), nearest_code_plain(flat, codebook)
+    for label, (n, g, d, k) in shapes.items():
+        flat = torch.randn(n, g * d + 8, generator=gen, device=device)[:, 8:]  # row stride g*d + 8
+        codebook = torch.randn(g, d, k, generator=gen, device=device)
+        if g == 1:
+            flat, codebook = flat.contiguous(), codebook[0]
+        got, again = nearest_code(flat, codebook), nearest_code(flat, codebook)
+        want = nearest_code_plain(flat, codebook)
         torch.cuda.synchronize()
-        if got.shape != (n,) or got.dtype != torch.int32:
-            raise AssertionError(f"nearest_code {label}: {tuple(got.shape)} {got.dtype}")
-        found = near_tie_gaps(flat, codebook, got, want)
+        if got.shape != want.shape or got.dtype != torch.int32 or not torch.equal(got, again):
+            raise AssertionError(f"nearest_code {label}: {tuple(got.shape)} {got.dtype}, rerun "
+                                 f"bit-identical {torch.equal(got, again)}")
+        found = grouped_near_ties(flat, codebook, got, want)
         mismatches[label] = len(found)
         gaps += found
-        phase("codec-kernel", f"nearest_code {label} N={n} D={d} K={k}: {len(found)} of {n} rows "
-              f"differ from the plain version, each a near tie (float64 gaps "
+        plan = search_plan(n, g, d, k, sms=limits["sms"], smem_optin=limits["smem_optin"],
+                           smem_per_sm=limits["smem_per_sm"])
+        phase("codec-kernel", f"nearest_code {label} N={n} G={g} S={d} K={k} (row stride "
+              f"{flat.stride(0)}; {'resident' if plan.resident else 'streamed'} codebook, "
+              f"{plan.ctas} CTAs, {plan.units} units): {len(found)} of {n * g} picks differ "
+              f"from the plain version, each a near tie (float64 gaps "
               f"{', '.join(f'{v:.2e}' for v in found[:4]) or 'none'}; bound {CODE_NEAR_TIE_REL} x "
-              f"(‖x‖² + max ‖e‖²))")
+              f"(‖x‖² + max ‖e‖²)); rerun bit-identical")
     # multiples of 1/32 in [-1, 1]: every score is exact in fp32 in any summation
     # order, so duplicated columns tie exactly on both sides
     codebook = (torch.randn(16, 300, generator=gen, device=device) * 8).round().clamp(-32, 32) / 32
@@ -1440,26 +1497,59 @@ def codec_phases(device, gen) -> dict:
               f"{CODEC_TRAIN_BATCH * BENCH_SECONDS / (ms / 1e3):,.0f} audio-s trained per s "
               f"(runs {', '.join(f'{v:.2f}' for v in vals)} ms)")
 
-    kernel_ms = {}
-    for label in ("deep", "skip"):
-        n, d, k = shapes[label]
-        flat = torch.randn(n, d, generator=gen, device=device)
-        codebook = torch.randn(d, k, generator=gen, device=device)
-        runs = {"plain": [], "kernel": []}
-        for kind in ("plain", "kernel", "kernel", "plain"):
+    # one codes call: its launches of the kernel and their device time
+    with torch.inference_mode():
+        before = nearest_code.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            model.codes(audio)
+            torch.cuda.synchronize()
+        codes_launches = nearest_code.launches - before
+    searches = [e for e in prof.events()
+                if e.device_type.name == "CUDA" and "nearest_code_kernel" in e.name]
+    codes_search_ms = sum(e.time_range.elapsed_us() for e in searches) / 1e3
+    if codes_launches != 4 or len(searches) != 4:
+        raise AssertionError(f"t3tok codes: {codes_launches} nearest_code calls, "
+                             f"{len(searches)} kernel launches, expected 4 (2 deep + 2 skip stages)")
+    phase("codec-timing", f"t3tok codes, {CODEC_BATCH} x {BENCH_SECONDS:.0f} s: {codes_launches} "
+          f"nearest_code launches a call (2 deep stages + 2 skip stages of 4 groups), "
+          f"{codes_search_ms * 1e3:.1f} us of kernel device time under the profiler "
+          f"({', '.join(f'{e.time_range.elapsed_us():.1f}' for e in searches)} us)")
+
+    kernel_ms, timed_mismatch = {}, 0
+    for label in ("deep", "skip", "skip stage"):
+        n, g, d, k = shapes[label]
+        flat = torch.randn(n, g * d, generator=gen, device=device)
+        codebook = torch.randn(g, d, k, generator=gen, device=device)
+        if g == 1:
+            codebook = codebook[0]
+        runs, outs = {"plain": [], "kernel": []}, {}
+
+        def call(kind):
             fn = nearest_code if kind == "kernel" else nearest_code_plain
-            runs[kind].append(device_ms(lambda: fn(flat, codebook), iters=50))
+            outs[kind] = fn(flat, codebook)
+
+        for kind in ("plain", "kernel", "kernel", "plain"):
+            runs[kind].append(device_ms(lambda: call(kind), iters=50))
+        # the timed calls' own outputs: the kernel's against the plain version's
+        # (near ties only) and against an untimed call (bit-identical)
+        torch.cuda.synchronize()
+        found = grouped_near_ties(flat, codebook, outs["kernel"], outs["plain"])
+        if not torch.equal(outs["kernel"], nearest_code(flat, codebook)):
+            raise AssertionError(f"nearest_code {label}: the timed output is not bit-identical")
+        timed_mismatch += len(found)
         host = cuda_ms(lambda: nearest_code(flat, codebook), iters=50)
-        b = bound(4 * (n * d + d * k + n), 2 * n * d * k, FP32_FLOPS)
+        b = bound(4 * (n * g * d + g * d * k + n * g), 2 * n * g * d * k, FP32_FLOPS)
         kernel_ms[label] = (min(runs["kernel"]), min(runs["plain"]), host, b)
-        phase("codec-timing", f"nearest_code {label} N={n} D={d} K={k}: kernel "
+        phase("codec-timing", f"nearest_code {label} N={n} G={g} S={d} K={k}: kernel "
               f"{kernel_ms[label][0] * 1e3:.1f} us on the device (bound {b['bound_ms'] * 1e3:.1f} us "
               f"by {b['bound_by']}, {100 * b['bound_ms'] / kernel_ms[label][0]:.1f}%), "
               f"{host * 1e3:.1f} us a call paced by the host, plain {kernel_ms[label][1] * 1e3:.1f} us "
               f"(runs kernel {', '.join(f'{v * 1e3:.1f}' for v in runs['kernel'])}; plain "
-              f"{', '.join(f'{v * 1e3:.1f}' for v in runs['plain'])} us)")
+              f"{', '.join(f'{v * 1e3:.1f}' for v in runs['plain'])} us); the timed output: "
+              f"{len(found)} of {n * g} picks differ from the plain version's, each a near tie, "
+              f"rerun bit-identical")
 
-    deep, skip = kernel_ms["deep"], kernel_ms["skip"]
+    deep, skip, stage = kernel_ms["deep"], kernel_ms["skip"], kernel_ms["skip stage"]
     return {
         "name": "nearest_code",
         "route": "cuda",
@@ -1478,6 +1568,12 @@ def codec_phases(device, gen) -> dict:
         "ms_skip": skip[0],
         "plain_ms_skip": skip[1],
         "bound_ms_skip": skip[3]["bound_ms"],
+        "ms_skip_stage": stage[0],  # one skip stage, 4 groups, one launch
+        "plain_ms_skip_stage": stage[1],
+        "bound_ms_skip_stage": stage[3]["bound_ms"],
+        "launches_per_codes_call": codes_launches,
+        "ms_per_codes_call": codes_search_ms,  # the kernel's device time, profiled
+        "timed_mismatches": timed_mismatch,
         "launches_serving": serve_launches,
         "launches_training": train_launches,
     }

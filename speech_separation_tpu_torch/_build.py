@@ -69,8 +69,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # flat, codebook, out, rows, dim, codes, stream
-    "sst_nearest_code": (_P, _P, _P, _I, _I, _I, _P),
+    # flat, codebook, out, rows, ld, groups, dim, codes, ctas, resident, smem,
+    # stream
+    "sst_nearest_code": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

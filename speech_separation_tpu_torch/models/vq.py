@@ -13,8 +13,10 @@ sampling and codebook vector quantization.
 
 Every nearest-code search goes through :func:`nearest_code_indices`, which
 launches the ``nearest_code`` CUDA kernel on a GPU tensor (its plain version
-on a CPU tensor, or with ``plain=True``). The JAX flag ``use_pallas`` is not
-carried over: both of its branches compute the same function.
+on a CPU tensor, or with ``plain=True``): one launch a residual stage, every
+product-quantisation group of it in one grouped call that reads the
+residual's column slices in place. The JAX flag ``use_pallas`` is not carried
+over: both of its branches compute the same function.
 """
 
 from __future__ import annotations
@@ -78,12 +80,16 @@ def nearest_code_indices(
     flat: torch.Tensor, codebook: torch.Tensor, plain: bool = False
 ) -> torch.Tensor:
     """``argmin_k ‖flat_n − codebook[:, k]‖²`` for ``flat [N, D]``,
-    ``codebook [D, K]``: int32 ``[N]``, through the ``nearest_code`` kernel
-    (``plain=True``: its plain version, on any device)."""
+    ``codebook [D, K]``: int32 ``[N]``; for ``flat [N, G·S]``, ``codebook
+    [G, S, K]`` the same per group of ``S`` columns: int32 ``[N, G]``. Through
+    the ``nearest_code`` kernel (``plain=True``: its plain version, on any
+    device); ``flat`` is copied only where its columns are not contiguous."""
     flat, codebook = flat.detach(), codebook.detach()
     if plain:
         return nearest_code_plain(flat, codebook)
-    return nearest_code(flat.contiguous(), codebook.contiguous())
+    if flat.stride(-1) != 1 or flat.stride(0) < flat.shape[-1]:
+        flat = flat.contiguous()
+    return nearest_code(flat, codebook.contiguous())
 
 
 def _uniform_(param: torch.Tensor, scale: float, generator: torch.Generator | None) -> None:
@@ -162,15 +168,11 @@ class ResidualVectorQuantizer(nn.Module):
     def _quantize_stage(
         self, residual: torch.Tensor, d: int, plain: bool
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Nearest codes per sub-vector: ``[N, D]`` → (q ``[N, D]``, indices ``[N, pq]``)."""
-        sub = self.embedding_dim // self.pq
-        parts, idxs = [], []
-        for g in range(self.pq):
-            codebook = self.embeddings[d, g]
-            indices = nearest_code_indices(residual[:, g * sub : (g + 1) * sub], codebook, plain)
-            parts.append(codebook.T[indices])
-            idxs.append(indices)
-        return torch.cat(parts, dim=1), torch.stack(idxs, dim=-1)
+        """Nearest codes per sub-vector, one grouped search for the stage:
+        ``[N, D]`` → (q ``[N, D]``, indices ``[N, pq]``)."""
+        indices = nearest_code_indices(residual, self.embeddings[d], plain)
+        parts = [self.embeddings[d, g].T[indices[:, g]] for g in range(self.pq)]
+        return torch.cat(parts, dim=1), indices
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         flat = x.reshape(-1, self.embedding_dim)

@@ -744,12 +744,79 @@ def test_nearest_code_kernel_raises(cuda_device):
     assert nearest_code(flat[:0], codebook).shape == (0,)
 
 
+# (N, G, S, K): a t3tok skip stage (4 groups of 16), ragged N and K with 4-byte
+# copies, groups crossing CTAs' ranges at a small N, and codebooks past the
+# shared memory (streamed: S = 256 at K = 1,024, and K = 4,096)
+GROUPED_SHAPES = [(51200, 4, 16, 512), (12803, 3, 13, 509), (37, 8, 8, 64), (700, 1, 256, 1024),
+                  (300, 2, 16, 4096)]
+
+
+def _grouped_near_ties(flat, codebook, got, want):
+    """Each group's picks against the plain version's, differing only at near ties."""
+    s = codebook.shape[1]
+    return sum(len(_near_tie_rows(flat[:, g * s:(g + 1) * s], codebook[g], got[:, g], want[:, g]))
+               for g in range(codebook.shape[0]))
+
+
+@pytest.mark.parametrize("n,g,s,k", GROUPED_SHAPES)
+def test_nearest_code_grouped_kernel_matches_plain(cuda_device, n, g, s, k):
+    flat = _normal((n, g * s), seed=110).to(cuda_device)
+    codebook = _normal((g, s, k), seed=111).to(cuda_device)
+    before = nearest_code.launches
+    got = nearest_code(flat, codebook)
+    again = nearest_code(flat, codebook)
+    torch.cuda.synchronize()
+    assert nearest_code.launches == before + 2  # one launch a call, every group in it
+    want = nearest_code_plain(flat, codebook)
+    assert got.dtype == want.dtype == torch.int32 and got.shape == (n, g)
+    assert torch.equal(got, again)  # reruns bit-identical
+    assert _grouped_near_ties(flat, codebook, got, want) <= max(1, n * g // 1000)
+    # each group alone through the 2-D call picks the same, bit for bit
+    for j in range(g):
+        alone = nearest_code(flat[:, j * s:(j + 1) * s].contiguous(), codebook[j].contiguous())
+        assert torch.equal(alone, got[:, j])
+
+
+def test_nearest_code_reads_strided_rows_in_place(cuda_device):
+    wide = _normal((5000, 80), seed=112).to(cuda_device)
+    codebook = _normal((4, 16, 512), seed=113).to(cuda_device)
+    flat = wide[:, 8:72]  # row stride 80, columns contiguous: no copy
+    got = nearest_code(flat, codebook)
+    assert torch.equal(got, nearest_code(flat.contiguous(), codebook))
+    assert _grouped_near_ties(flat, codebook, got, nearest_code_plain(flat, codebook)) <= 5
+    odd = wide[:, 3:67]  # a row start off 16 bytes: the 4-byte copies
+    assert torch.equal(nearest_code(odd, codebook), nearest_code(odd.contiguous(), codebook))
+    with pytest.raises(ValueError, match="contiguous"):
+        nearest_code(wide.T.contiguous().T[:, :64], codebook)  # columns not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        nearest_code(flat, codebook.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.parametrize("s,k", [(16, 512), (256, 1024)])
+def test_nearest_code_grouped_exact_ties_pick_the_lowest_index(cuda_device, s, k):
+    # multiples of 1/32: every score exact in any order, so duplicated codes tie exactly
+    base = (torch.round(_normal((2, s, k // 2), seed=114) * 8).clamp(-32, 32) / 32).to(cuda_device)
+    codebook = torch.cat([base, base], dim=2).contiguous()  # code c and c + k/2 equal
+    picks = torch.from_numpy(np.random.default_rng(115).integers(0, k, (2, 600))).to(cuda_device)
+    flat = torch.cat([codebook[j][:, picks[j]].T for j in range(2)], dim=1).contiguous()
+    got = nearest_code(flat, codebook)
+    assert torch.equal(got, (picks % (k // 2)).T.to(torch.int32))
+    assert torch.equal(got, nearest_code_plain(flat, codebook))
+
+
+def test_nearest_code_all_nan_rows_get_index_zero(cuda_device):
+    flat = _normal((40, 32), seed=116).to(cuda_device)
+    flat[[3, 17, 39], 5:9] = float("nan")  # group 0 of three rows
+    got = nearest_code(flat, _normal((2, 16, 300), seed=117).to(cuda_device))
+    assert got[[3, 17, 39], 0].tolist() == [0, 0, 0]
+
+
 def test_vector_quantizers_on_the_card_launch_the_kernel(cuda_device):
     gen = torch.Generator().manual_seed(0)
     vq = VectorQuantizer(64, 16, init_scale=1.0, generator=gen).to(cuda_device)
     rvq = ResidualVectorQuantizer(32, 16, depth=2, pq=4, generator=gen).to(cuda_device)
     x = _normal((3, 50, 16), seed=105).to(cuda_device)
-    for layer, launches in ((vq, 1), (rvq, 8)):
+    for layer, launches in ((vq, 1), (rvq, 2)):  # the RVQ: one grouped launch a stage
         before = nearest_code.launches
         with torch.no_grad():
             out, aux = layer(x)
@@ -765,5 +832,5 @@ def test_vector_quantizers_on_the_card_launch_the_kernel(cuda_device):
     with torch.no_grad():
         deep, skip = model.codes(frames)
         plain = model.codes(frames, plain=True)
-    assert nearest_code.launches == before + 2 + 2 * 4  # 2 deep stages, 2 skip stages x pq 4
+    assert nearest_code.launches == before + 2 + 2  # 2 deep stages, 2 skip stages of pq 4 each
     assert torch.equal(deep, plain[0]) and torch.equal(skip, plain[1])
