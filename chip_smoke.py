@@ -117,7 +117,33 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    deep and 2 skip stages) and the kernel's device time in it; and the kernel
    alone at the deep, one-group skip and grouped skip-stage shapes against its
    plain version, on the device (queued behind a sleep kernel) and paced by
-   the host, the timed calls' own outputs held against the plain version's.
+   the host, the timed calls' own outputs held against the plain version's;
+18. packed training path — ``cli train`` with ``pack=true`` for 2 epochs on a
+   synthetic fixture (tr 24, cv 8) at full width, fp32 and bf16, rows of 16
+   s packed 2 a batch, then ``cli separate --checkpoint-dir`` on ``tt``,
+   counting the kernels' launches: every training forward and 3 backward
+   launches a step in the keep mode of rows 3 and 4, none without the gate,
+   no plain loop; on one packed batch the kernel path's loss and four
+   gradient groups against the plain path's, the packed loss against the
+   sum over its utterances run alone, ``forward(segment_ids)`` (the training
+   forward kernel's keep mode) against ``train_forward`` and the plain path;
+   8 steps on one fixed batch must lower the loss;
+19. packed training timing at the JAX loader's defaults (16 rows x 16 s,
+   1,001 frames): the train step, kernel path in fp32 and bf16 and plain
+   path in fp32, in audio-seconds trained per second counting only the true
+   audio, with the batch's frame occupancy and phase 8's bucketed rate;
+20. scoring — ``cli evaluate`` on the ``tt`` output of phases 4, 7, 10, 13
+   and 18, each JSON line finite and equal to ``evaluate_directory`` in
+   process; then the overfit quality run of ``scripts/fixture_quality_run.py``
+   on a synthetic fixture: the full-width ``UPitBlstm`` in fp32 trained 500
+   steps on one batch of 4 easy-profile utterances, that split separated and
+   scored (SI-SDR, SI-SDRi, BSS SDR) beside the untrained model's; the
+   SI-SDRi must gain at least 3 dB.
+
+Phase 15 also holds the search's NaN picks: a NaN score orders below every
+number, so a row holding one gets its first NaN's index, as ``torch.argmin``
+and ``jnp.argmin`` pick it (a NaN codebook column; a row holding an inf
+against a code with a 0 there), resident and streamed, 2-D and grouped.
 
 Every kernel's entry in the kernels line carries its bound: the larger of its
 compulsory bytes (each input read once, each output written once) over 3.35
@@ -135,9 +161,11 @@ The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -214,6 +242,16 @@ TRAIN_TRUNK_FP32_FACTOR = 2.0
 TASNET_STEP_LOSS_REL = {"plain trunk": 1e-2, "module bf16": 5e-2}
 # (measured 48.2 and 32.0 dB, H100 80GB HBM3, 700 W)
 TASNET_STEP_GRAD_DB = {"plain trunk": 35.0, "module bf16": 10.0}
+# Packed training: the JAX loader's defaults (data/packing.py), the row of
+# 16 s holding 1,001 STFT frames; phase 18's cli run packs 2 rows a batch
+PACK_ROWS, PACK_ROW_SECONDS = 16, 16.0
+# The packed loss against the sum of pit_loss over the same utterances run
+# unpacked, fp32 kernel path: the same frames, sums in another order
+PACKED_SUM_REL = 1e-4
+# The overfit protocol of scripts/fixture_quality_run.py: 500 steps on one
+# batch of 4 utterances, train == test; the trained SI-SDRi must beat the
+# untrained model's by this much
+QUALITY_STEPS, QUALITY_GAIN_DB = 500, 3.0
 # NVIDIA H100 SXM: HBM bytes/s, dense bf16 tensor-core and fp32 FLOP/s
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 
@@ -255,6 +293,13 @@ def counting_calls(module, name: str):
         yield calls
     finally:
         setattr(module, name, fn)
+
+
+def keep_output(kept: pathlib.Path, tag: str, root: pathlib.Path, est: pathlib.Path) -> None:
+    """Copy a fixture's ``tt`` split and a path's estimates of it to
+    ``kept/tag`` for phase 20's scoring."""
+    shutil.copytree(root / "tt", kept / tag / "data" / "tt")
+    shutil.copytree(est, kept / tag / "est")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -314,6 +359,10 @@ def main() -> int:
     _build.library()
     phase("build", f"nvcc {' '.join(_build.NVCC_FLAGS)} "
           f"{' '.join(s.name for s in _build.SOURCES)}: {time.perf_counter() - t0:.1f} s")
+
+    # the tt outputs of phases 4, 7, 10, 13 and 18, scored in phase 20
+    kept_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_scored_")
+    kept = pathlib.Path(kept_dir.name)
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=device).manual_seed(0)
@@ -430,6 +479,7 @@ def main() -> int:
                 raise AssertionError(f"kernel path vs plain path rel L2 {rel} > {PATH_REL_TOL}")
             phase("serve", f"{tag} kernel path against fp32 plain path on one batch "
                   f"{tuple(mix.shape)}: rel L2 {rel:.3e}, finite, shape {tuple(got.shape)}")
+        keep_output(kept, "phase 4 separate_directory fp32", root, pathlib.Path(tmp) / "sep_fp32")
 
     # 5. timing at the bench shape
     samples = int(BENCH_SECONDS * SAMPLE_RATE)
@@ -493,14 +543,21 @@ def main() -> int:
           f"the same work (cuBLAS projection + lstm_recurrence): {lstm_layer_ms:.2f} ms (runs "
           f"{', '.join(f'{v:.2f}' for v in fwd_ms['port'])})")
 
-    train = training_phases(device, model, gen)
+    train, bucketed = training_phases(device, model, gen, kept)
     del model
     torch.cuda.empty_cache()
-    tasnet = tasnet_phases(device, gen)
+    tasnet = tasnet_phases(device, gen, kept)
     torch.cuda.empty_cache()
-    tasnet_train = tasnet_training_phases(device, gen)
+    tasnet_train = tasnet_training_phases(device, gen, kept)
     torch.cuda.empty_cache()
     codec = codec_phases(device, gen)
+    torch.cuda.empty_cache()
+    packed = packed_phases(device, kept, bucketed)
+    torch.cuda.empty_cache()
+    scoring_phases(device, kept)
+    kept_dir.cleanup()
+    for entry in train:  # rows 3 and 4: their keep-mode launches on the packed path
+        entry.update(packed[entry["name"]])
 
     d, h4 = 2, 4 * hidden
     lstm_bytes = 4 * (d * BENCH_BATCH * frames * h4 + d * hidden * h4 + BENCH_BATCH * frames * d * hidden)
@@ -580,7 +637,7 @@ def check_trunk(h0, stacks, dils) -> tuple[float, float, float]:
     return err, bound, peak
 
 
-def tasnet_phases(device, gen) -> dict:
+def tasnet_phases(device, gen, kept) -> dict:
     """Phases 9 to 11; returns the trunk kernel's entry of the kernels line."""
     import copy
 
@@ -660,6 +717,7 @@ def tasnet_phases(device, gen) -> dict:
         phase("tasnet-serve", f"cli separate --kernel pallas tt ({len(names)} mixtures, ConvTasNet "
               f"{n_params:,} params): {len(wavs)} wavs of their mixtures' lengths in "
               f"{seconds:.2f} s; tcn_trunk launches {launches}")
+        keep_output(kept, "phase 10 Conv-TasNet cli separate --kernel pallas", root, out)
 
         batch = next(iter(WaveformLoader(root / "tt", batch_size=4)))
         mix = torch.from_numpy(batch.mix).to(device)
@@ -923,7 +981,7 @@ def check_training_trunk(h0, dskip, canon, folded, dils, *, serving: bool = Fals
             "grad_rel": max(flat_parts(bwd).values()), "report": report}
 
 
-def tasnet_training_phases(device, gen) -> list[dict]:
+def tasnet_training_phases(device, gen, kept) -> list[dict]:
     """Phases 12 to 14; returns the two training kernels' entries of the kernels line."""
     import numpy as np
     import torch
@@ -1052,6 +1110,7 @@ def tasnet_training_phases(device, gen) -> list[dict]:
               f"{', '.join(f'{v:.2f}' for v in losses)}; val {', '.join(f'{v:.2f}' for v in vals)}; "
               f"then cli separate --kernel pallas (8 wavs), {seconds:.1f} s; launches {launches}")
 
+        keep_output(kept, "phase 13 Conv-TasNet cli train + separate", root, out)
         b = next(iter(WaveformLoader(root / "tr", batch_size=4)))
         arrays = tuple(torch.from_numpy(a).to(device) for a in (b.mix, b.sources, b.sample_lengths))
 
@@ -1344,6 +1403,44 @@ def codec_phases(device, gen) -> dict:
         raise AssertionError("nearest_code: an exact tie did not pick the lowest index")
     phase("codec-kernel", "nearest_code duplicated codebook (644 codes, 4,096 rows each tied "
           "exactly): every pick is the lowest index, as the plain version's")
+    # NaN scores: the first NaN's index, as torch.argmin and jnp.argmin pick it,
+    # on exact inputs (every finite score exact), resident and streamed, 2-D
+    # and grouped: a NaN codebook column at k = 2 (and 7), and rows holding
+    # an inf against codes 9 and 40, the only ones holding a 0 in its dimension
+    # (inf x 0); the plain version on the CPU and the known pick as expectation
+    for form, n, g, d, k in (("2-D", 12_800, 1, 64, 512), ("2-D", 700, 1, 256, 1024),
+                             ("grouped", 4_096, 4, 16, 512), ("grouped", 700, 2, 256, 1024)):
+        exact = (torch.randn(n, g * d, generator=gen, device=device) * 8).round().clamp(-32, 32) / 32
+        book = (torch.randn(g, d, k, generator=gen, device=device) * 8).round().clamp(-32, 32) / 32
+        rows = torch.tensor([0, 17, n // 2, n - 1], device=device)
+        for case in ("NaN column", "inf row"):
+            flat, codebook = exact.clone(), book.clone()
+            if case == "NaN column":
+                codebook[g - 1, 3, 2] = codebook[g - 1, 0, 7] = float("nan")
+                picked, pick = torch.arange(n, device=device), 2
+            else:
+                flat[rows, (g - 1) * d + 5] = torch.tensor([math.inf, -math.inf] * 2, device=device)
+                column = codebook[g - 1, 5]
+                column[column == 0] = 1 / 32
+                column[[9, 40]] = 0.0
+                picked, pick = rows, 9
+            if g == 1:
+                codebook = codebook[0].contiguous()
+            got, again = nearest_code(flat, codebook), nearest_code(flat, codebook)
+            want, cpu = nearest_code_plain(flat, codebook), nearest_code_plain(flat.cpu(), codebook.cpu())
+            last = (got if g == 1 else got[:, g - 1])[picked]
+            if not (torch.equal(got, want) and torch.equal(got.cpu(), cpu) and torch.equal(got, again)
+                    and bool((last == pick).all())):
+                raise AssertionError(
+                    f"nearest_code {case} {form} N={n} G={g} S={d} K={k}: equal to the plain "
+                    f"version {torch.equal(got, want)}, to the CPU's {torch.equal(got.cpu(), cpu)}, "
+                    f"rerun {torch.equal(got, again)}, picks {last[:4].tolist()} (want {pick})")
+        plan = search_plan(n, g, d, k, sms=limits["sms"], smem_optin=limits["smem_optin"],
+                           smem_per_sm=limits["smem_per_sm"])
+        phase("codec-kernel", f"nearest_code NaN scores {form} N={n} G={g} S={d} K={k} "
+              f"({'resident' if plan.resident else 'streamed'}): a NaN column at k = 2 and 7 "
+              f"picks 2 on every row, rows holding an inf pick 9 (inf x 0); every pick equal to "
+              f"the plain version's on the card and on the CPU, rerun bit-identical")
 
     # 16. the codec path: the committed trained t3tok through the port's CLI
     cfg = load_config(VaeTrainConfig, CODEC_DIR / "train_config.json")
@@ -1587,8 +1684,9 @@ def bf16_bound(want) -> float:
     return TRAIN_BF16_TOL * max(1.0, max(w.float().abs().max().item() for w in want))
 
 
-def training_phases(device, model, gen) -> list[dict]:
-    """Phases 6 to 8; returns the two training kernels' entries of the kernels line."""
+def training_phases(device, model, gen, kept) -> tuple[list[dict], dict]:
+    """Phases 6 to 8; returns the two training kernels' entries of the kernels
+    line and phase 8's kernel-path audio-s trained per s by dtype."""
     import torch
 
     from speech_separation_tpu_torch import cli
@@ -1760,6 +1858,7 @@ def training_phases(device, model, gen) -> list[dict]:
         phase("train", f"cli train fp32 + bf16 and cli separate --checkpoint-dir (8 wavs) in "
               f"{seconds:.1f} s; launches {launches}; the forward kernels one a call "
               f"({fwd_calls[0]} training, {serve_calls[0]} serving calls)")
+        keep_output(kept, "phase 7 BLSTM cli train bf16 + separate", root, out)
 
         # the kernel path's train step against the plain path's, on one batch
         loader = WaveformLoader(root / "tr", batch_size=4)
@@ -1810,6 +1909,7 @@ def training_phases(device, model, gen) -> list[dict]:
         phase("train-timing", f"train step {tag} {kind} path, {TRAIN_BATCH} x "
               f"{BENCH_SECONDS:.0f} s: {ms:.1f} ms/step = {audio_s / (ms / 1e3):,.1f} "
               f"audio-s trained per s (runs {', '.join(f'{v:.1f}' for v in vals)} ms)")
+    bucketed = {tag: audio_s / (min(step_ms[(tag, "kernel")]) / 1e3) for tag in ("fp32", "bf16")}
 
     xw = torch.randn(2, TRAIN_BATCH, frames, 4 * hidden, generator=gen, device=device)
     dy = torch.randn(TRAIN_BATCH, frames, 2 * hidden, generator=gen, device=device)
@@ -1929,7 +2029,258 @@ def training_phases(device, model, gen) -> list[dict]:
             # port's side of that work is its whole layer forward or backward
             f"layer_{which}_ms": layer_fwd_ms if which == "forward" else layer_bwd_ms,
         })
-    return entries
+    return entries, bucketed
+
+
+def packed_phases(device, kept, bucketed) -> dict:
+    """Phases 18 and 19; returns the packed path's launches of rows 3 and 4
+    (``lstm_train_forward``, ``lstm_train_backward``) for the kernels line."""
+    import torch
+
+    from speech_separation_tpu_torch import cli
+    from speech_separation_tpu_torch import train as train_mod
+    from speech_separation_tpu_torch.data.datasets import WaveformLoader
+    from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.data.packing import PackedWaveformLoader
+    from speech_separation_tpu_torch.losses.pit import pit_loss_packed
+    from speech_separation_tpu_torch.models import upit as upit_module
+    from speech_separation_tpu_torch.models.upit import UPitBlstm
+    from speech_separation_tpu_torch.ops import lstm_train_cuda
+    from speech_separation_tpu_torch.ops.features import psm_features
+    from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence
+    from speech_separation_tpu_torch.ops.lstm_train_cuda import lstm_train_backward, lstm_train_forward
+    from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
+
+    # 18. packed training through the port's CLI at full width
+    counters = (stft_cuda, lstm_recurrence, lstm_train_forward, lstm_train_backward)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_packed_") as tmp:
+        tmp = pathlib.Path(tmp)
+        root = make_synthetic_fixture(tmp / "fixture",
+                                      utterances_per_split={"tr": 24, "cv": 8, "tt": 8})
+        for counter in counters:
+            counter.launches = 0
+        lstm_train_forward.keep_launches = lstm_train_backward.keep_launches = 0
+        steps, t0 = 0, time.perf_counter()
+        with (counting_calls(upit_module, "bilstm_train") as calls,
+              counting_calls(lstm_train_cuda, "lstm_train_forward_plain") as fwd_plain,
+              counting_calls(lstm_train_cuda, "lstm_train_backward_plain") as bwd_plain):
+            for tag, bf16 in (("fp32", False), ("bf16", True)):
+                cfg, ckpt = tmp / f"cfg_{tag}.json", tmp / f"ckpt_{tag}"
+                cfg.write_text(json.dumps({"seed": 0, "pack": True, "pack_rows_per_batch": 2,
+                                           "pack_row_seconds": PACK_ROW_SECONDS,
+                                           "bf16_compute": bf16}))
+                cli.main(["train", "--workload", "upit", "--config", str(cfg), "--data-root",
+                          str(root), "--epochs", "2", "--checkpoint-dir", str(ckpt)])
+                records = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+                losses = [r["loss"] for r in records if "loss" in r]
+                vals = [r["val_loss"] for r in records if "val_loss" in r]
+                if not (losses and len(vals) == 2 and all(map(math.isfinite, losses + vals))):
+                    raise AssertionError(f"cli train pack {tag}: step losses {losses}, val {vals}")
+                steps += len(losses)
+                phase("packed-train", f"cli train pack=true {tag} (UPitBlstm 16,077,602 params), 2 "
+                      f"epochs of tr 24 in rows of {PACK_ROW_SECONDS:.0f} s, 2 a batch, + cv 8: "
+                      f"step losses {', '.join(f'{v:.2f}' for v in losses)}; val "
+                      f"{', '.join(f'{v:.2f}' for v in vals)}")
+            out = tmp / "sep"
+            cli.main(["separate", "--checkpoint-dir", str(tmp / "ckpt_fp32"), "--data-root",
+                      str(root), "--out-dir", str(out)])
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        keep = {c.__name__: c.keep_launches for c in (lstm_train_forward, lstm_train_backward)}
+        # every training forward a keep-mode launch (rows <= 256: one row slice),
+        # 3 keep-mode backward launches a train step, no launch without the gate
+        # and no plain loop
+        if not (min(launches.values()) > 0 and keep["lstm_train_forward"] == calls[0]
+                == launches["lstm_train_forward"] and keep["lstm_train_backward"] == 3 * steps
+                == launches["lstm_train_backward"] and fwd_plain[0] == bwd_plain[0] == 0):
+            raise AssertionError(f"packed path: launches {launches}, keep-mode {keep}, "
+                                 f"{calls[0]} bilstm_train calls, {steps} train steps, plain "
+                                 f"loops {fwd_plain[0]} + {bwd_plain[0]}")
+        if len(list(out.glob("*.wav"))) != 16:
+            raise AssertionError(f"cli separate wrote {len(list(out.glob('*.wav')))} wavs for 8")
+        phase("packed-train", f"cli train pack=true fp32 + bf16 ({steps} steps) and cli separate "
+              f"--checkpoint-dir (16 wavs) in {seconds:.1f} s; launches {launches}; keep-mode "
+              f"{keep} ({calls[0]} bilstm_train calls: 3 forward and 3 backward a step); no plain "
+              f"loop")
+        keep_output(kept, "phase 18 packed BLSTM cli train fp32 + separate", root, out)
+
+        loader = PackedWaveformLoader(root / "tr", rows_per_batch=2, row_seconds=PACK_ROW_SECONDS)
+        b = next(iter(loader))
+        mix, sources, seg = (torch.from_numpy(a).to(device) for a in (b.mix, b.sources, b.frame_seg))
+        # each utterance alone and unpadded (its backward direction starts at
+        # its own last frame, as in its segment)
+        singles = {n: one for one in WaveformLoader(root / "tr", batch_size=1, pad_quantum_samples=1)
+                   for n in one.names if any(n in row for row in b.names)}
+
+    def net(dropout=0.0):
+        return UPitBlstm(dropout_rate=dropout, generator=torch.Generator().manual_seed(0)).to(device)
+
+    groups = {"input projection": ("input_proj.",), "input kernels and biases": (".cells.kernel",
+              ".cells.bias"), "recurrent kernels": (".recurrent_kernel",), "mask heads": ("heads.",)}
+
+    def loss_and_grads(plain):
+        model = net()
+        feats = psm_features(mix, sources, plain=plain)
+        preds = model.train_forward(feats.magnitude, segment_ids=seg, plain=plain)
+        loss = pit_loss_packed(preds, feats.labels, seg, num_segments=loader.num_segments)
+        loss.backward()
+        grads = {g: torch.cat([p.grad.flatten() for n, p in model.named_parameters()
+                               if any(k in n for k in keys)]) for g, keys in groups.items()}
+        return loss.item(), grads
+
+    before = (lstm_train_forward.keep_launches, lstm_train_backward.keep_launches)
+    k_loss, k_grads = loss_and_grads(False)
+    launched = (lstm_train_forward.keep_launches - before[0], lstm_train_backward.keep_launches - before[1])
+    p_loss, p_grads = loss_and_grads(True)
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    rels = {g: ((k_grads[g] - p_grads[g]).norm() / p_grads[g].norm()).item() for g in groups}
+    if not (rel <= STEP_REL_TOL and max(rels.values()) <= GRAD_REL_TOL and launched == (3, 3)):
+        raise AssertionError(f"packed batch kernel vs plain: loss {k_loss} vs {p_loss} (rel {rel}), "
+                             f"gradients {rels}, keep-mode launches {launched}")
+    occupancy = float((b.frame_seg >= 0).mean())
+    phase("packed-train", f"one packed batch {tuple(b.mix.shape)} ({sum(map(len, b.names))} "
+          f"utterances, occupancy {occupancy:.3f}), fp32 kernel path (3 + 3 keep-mode launches) "
+          f"against plain path: loss {k_loss:.4f} vs {p_loss:.4f} (rel {rel:.1e} <= {STEP_REL_TOL}); "
+          f"gradients rel L2 " + ", ".join(f"{g} {v:.1e}" for g, v in rels.items())
+          + f" <= {GRAD_REL_TOL}")
+
+    # the packed loss is the sum of each utterance's loss run alone; the
+    # serving forward with segment_ids runs the training kernel's keep mode
+    model = net()
+    state = train_mod.TrainState.create(model, train_mod.exponential_decay_adam(), seed=0)
+    _, eval_packed = train_mod.make_upit_packed_steps(model, num_segments=loader.num_segments)
+    _, eval_single = train_mod.make_upit_waveform_steps(model)
+    alone = sum(eval_single(state, *(torch.from_numpy(a).to(device) for a in (
+        one.mix, one.sources, one.frame_lengths))).item() for one in singles.values())
+    packed_loss = eval_packed(state, mix, sources, seg).item()
+    sum_rel = abs(packed_loss - alone) / abs(alone)
+    with torch.no_grad():
+        feats = psm_features(mix, sources)
+        before = lstm_train_forward.keep_launches
+        served = model(feats.magnitude, segment_ids=seg)
+        served_launches = lstm_train_forward.keep_launches - before
+        trained = model.train_forward(feats.magnitude, segment_ids=seg)
+        plain = model(feats.magnitude, segment_ids=seg, plain=True)
+    serve_rel = max(((served - w).norm() / w.norm()).item() for w in (trained, plain))
+    if not (sum_rel <= PACKED_SUM_REL and served_launches == 3 and serve_rel <= PATH_REL_TOL):
+        raise AssertionError(f"packed loss {packed_loss} vs the utterances alone {alone} (rel "
+                             f"{sum_rel}); forward(segment_ids): {served_launches} keep-mode "
+                             f"launches, rel L2 {serve_rel} against train_forward and plain")
+    phase("packed-train", f"fp32 kernel path: packed loss {packed_loss:.4f} = the sum over its "
+          f"{len(singles)} utterances run alone {alone:.4f} (rel {sum_rel:.1e} <= {PACKED_SUM_REL}); "
+          f"forward(segment_ids) under no_grad: 3 keep-mode training-forward launches, rel L2 "
+          f"{serve_rel:.1e} <= {PATH_REL_TOL} against train_forward and the plain path")
+
+    model = net(dropout=0.8)
+    state = train_mod.TrainState.create(model, train_mod.exponential_decay_adam(), seed=0)
+    ts, _ = train_mod.make_upit_packed_steps(model, num_segments=loader.num_segments)
+    fixed = [ts(state, mix, sources, seg)[1].item() for _ in range(8)]
+    if not (all(map(math.isfinite, fixed)) and fixed[-1] < fixed[0]):
+        raise AssertionError(f"8 packed steps on one batch did not lower the loss: {fixed}")
+    phase("packed-train", f"8 packed steps fp32 exponential_decay_adam on one fixed batch: loss "
+          f"{fixed[0]:.2f} -> {fixed[-1]:.2f}")
+
+    # 19. packed training timing at the JAX loader's defaults
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_packed_timing_") as tmp:
+        root = make_synthetic_fixture(pathlib.Path(tmp) / "fixture",
+                                      utterances_per_split={"tr": 96, "cv": 1, "tt": 1})
+        loader = PackedWaveformLoader(root / "tr", rows_per_batch=PACK_ROWS, row_seconds=PACK_ROW_SECONDS)
+        b = next(iter(loader))
+    if b.mix.shape[0] != PACK_ROWS or b.frame_seg.shape[1] != 1001:
+        raise AssertionError(f"packed timing batch {b.mix.shape}, frames {b.frame_seg.shape}")
+    arrays = tuple(torch.from_numpy(a).to(device) for a in (b.mix, b.sources, b.frame_seg))
+    occupancy = float((b.frame_seg >= 0).mean())
+    step_ms = {}
+    for tag, dt, kinds in (("fp32", None, ("plain", "kernel", "kernel", "plain")),
+                           ("bf16", torch.bfloat16, ("kernel", "kernel"))):
+        for kind in kinds:
+            model = net(dropout=0.8)
+            state = train_mod.TrainState.create(model, train_mod.exponential_decay_adam(), seed=0)
+            ts, _ = train_mod.make_upit_packed_steps(model, num_segments=loader.num_segments,
+                                                     compute_dtype=dt, plain=kind == "plain")
+            step_ms.setdefault((tag, kind), []).append(
+                cuda_ms(lambda: ts(state, *arrays), iters=3 if kind == "kernel" else 2))
+    rates = {}
+    for (tag, kind), vals in step_ms.items():
+        ms = min(vals)
+        rates[(tag, kind)] = b.audio_seconds / (ms / 1e3)
+        extra = f"; bucketed 32 x 8 s (phase 8): {bucketed[tag]:,.1f}" if kind == "kernel" else ""
+        phase("packed-timing", f"packed train step {tag} {kind} path, {PACK_ROWS} rows x "
+              f"{PACK_ROW_SECONDS:.0f} s (1,001 frames, {sum(map(len, b.names))} utterances, "
+              f"{b.audio_seconds:.2f} s of true audio, frame occupancy {occupancy:.4f}): {ms:.1f} "
+              f"ms/step = {rates[(tag, kind)]:,.1f} audio-s trained per s (runs "
+              f"{', '.join(f'{v:.1f}' for v in vals)} ms){extra}")
+    return {
+        name: {"keep_launches_packed": keep[name],
+               "packed_step_ms": min(step_ms[("fp32", "kernel")]),
+               "packed_step_ms_bf16": min(step_ms[("bf16", "kernel")]),
+               "packed_audio_s_per_s": rates[("fp32", "kernel")],
+               "packed_audio_s_per_s_bf16": rates[("bf16", "kernel")]}
+        for name in ("lstm_train_forward", "lstm_train_backward")
+    }
+
+
+def scoring_phases(device, kept) -> None:
+    """Phase 20: ``cli evaluate`` on every kept path's output, then the
+    overfit quality run."""
+    import torch
+
+    from speech_separation_tpu_torch import cli
+    from speech_separation_tpu_torch import train as train_mod
+    from speech_separation_tpu_torch.data.datasets import WaveformLoader
+    from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.evaluate import evaluate_directory
+    from speech_separation_tpu_torch.models.upit import UPitBlstm
+    from speech_separation_tpu_torch.separate.pipeline import separate_directory
+
+    fields = ("si_sdr", "si_sdri", "sdr", "isr", "sir", "sar")
+    for path in sorted(kept.iterdir(), key=lambda p: int(p.name.split()[1])):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            cli.main(["evaluate", "--data-root", str(path / "data"), "--est-dir", str(path / "est")])
+        line = json.loads(printed.getvalue().strip().splitlines()[-1])
+        _, agg = evaluate_directory(path / "data", path / "est")
+        same = all(line[f"{k}_db"] == round(agg[k], 4) for k in fields)
+        if not (same and line["utterances"] == agg["utterances"] > 0
+                and all(math.isfinite(line[f"{k}_db"]) for k in fields)):
+            raise AssertionError(f"cli evaluate {path.name}: {line}, in process {agg}")
+        phase("score", f"{path.name}: cli evaluate {json.dumps(line)} (finite, equal to "
+              f"evaluate_directory in process)")
+
+    # the overfit protocol of scripts/fixture_quality_run.py on a synthetic
+    # fixture: one batch of 4 easy utterances, train == test, fp32, full width
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as tmp:
+        tmp = pathlib.Path(tmp)
+        root = make_synthetic_fixture(tmp / "fixture", utterances_per_split={"tr": 4, "cv": 1, "tt": 1})
+        b = next(iter(WaveformLoader(root / "tr", batch_size=4)))
+        arrays = tuple(torch.from_numpy(a).to(device) for a in (b.mix, b.sources, b.frame_lengths))
+        model = UPitBlstm(generator=torch.Generator().manual_seed(0)).to(device)
+        scores = {}
+
+        def score(step):
+            separate_directory(model, root / "tr", tmp / f"sep_{step}", batch_size=4)
+            _, scores[step] = evaluate_directory(root, tmp / f"sep_{step}", split="tr")
+
+        score(0)
+        state = train_mod.TrainState.create(model, train_mod.exponential_decay_adam(decay_steps=2000),
+                                            seed=0)
+        ts, _ = train_mod.make_upit_waveform_steps(model)
+        t0 = time.perf_counter()
+        losses = [ts(state, *arrays)[1] for _ in range(QUALITY_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        score(QUALITY_STEPS)
+    first, last = scores[0], scores[QUALITY_STEPS]
+    gain = last["si_sdri"] - first["si_sdri"]
+    if not (all(math.isfinite(s[k]) for s in (first, last) for k in fields) and gain >= QUALITY_GAIN_DB):
+        raise AssertionError(f"quality run: untrained {first}, after {QUALITY_STEPS} steps {last}")
+    phase("quality", f"UPitBlstm fp32, {QUALITY_STEPS} steps on one batch of 4 easy-profile "
+          f"utterances (train == test, exponential_decay_adam decay 2000, dropout 0.8) in "
+          f"{seconds:.1f} s, loss {losses[0].item():.2f} -> {losses[-1].item():.2f}: SI-SDR "
+          f"{last['si_sdr']:.4f} dB, SI-SDRi {last['si_sdri']:.4f} dB, BSS SDR {last['sdr']:.4f} dB; "
+          f"untrained (seed 0) {first['si_sdr']:.4f}, {first['si_sdri']:.4f}, {first['sdr']:.4f}; "
+          f"SI-SDRi gain {gain:.4f} dB >= {QUALITY_GAIN_DB}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the nearest-code search kernel's time goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_probe_vq.py [--first-port PATH] [--scale]
+    python3 scripts/torch_probe_vq.py [--first-port PATH] [--beside PATH] [--scale]
 
 Builds copies of ``csrc/nearest_code.cu`` with its probe switches set by
 ``-D`` flags and times each beside the kernel itself at the t3tok codec's
@@ -23,6 +23,9 @@ names a source of the first port of this kernel (one launch of 64-row
 blocks a 2-D call, entry ``sst_nearest_code(flat, codebook, out, rows, dim,
 codes, stream)``), timed beside the copies with a skip stage as its four
 launches on contiguous slices (the slices' copies not counted).
+``--beside`` names another revision of this kernel's source with the same
+entry (an earlier commit's ``csrc/nearest_code.cu``), built, checked and
+timed beside the kernel as ``beside``.
 
 ``--scale`` also times the port's kernel at the deep search's widths (D =
 64, K = 512) with 1 to 28 units a CTA, and fits the time as a part that does
@@ -101,6 +104,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--first-port", type=pathlib.Path, default=None,
                         help="a source of the kernel's first port, timed beside the copies")
+    parser.add_argument("--beside", type=pathlib.Path, default=None,
+                        help="another revision of the kernel's source, timed beside it")
     parser.add_argument("--scale", action="store_true",
                         help="time the kernel against the units a CTA walks")
     args = parser.parse_args()
@@ -130,6 +135,8 @@ def main() -> int:
         flags = {name: defines(switches) for name, switches in COPIES.items()}
         if args.first_port is not None:
             sources["first port"], flags["first port"] = args.first_port.resolve(), ()
+        if args.beside is not None:
+            sources["beside"], flags["beside"] = args.beside.resolve(), ()
         paths, procs = {}, {}
         for i, name in enumerate(sources):
             paths[name] = pathlib.Path(tmp) / f"copy{i}.so"

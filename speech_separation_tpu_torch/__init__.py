@@ -11,18 +11,23 @@ nor ``speech_separation_tpu``. Module paths mirror the JAX package's:
                  training forward; Conv-TasNet and its folded serving and
                  kernel training paths (``fused_apply``, ``cuda_apply``,
                  ``train_apply``); the VQ-VAE codecs and their quantizers;
-- ``losses``   : the PIT losses (masks, and SI-SDR over waveforms), the
-                 codecs' summed squared error;
+- ``losses``   : the PIT losses (masks, packed rows, and SI-SDR over
+                 waveforms), SI-SDR, the codecs' summed squared error;
+- ``metrics``  : SI-SDR (numpy, permutation-best, streaming mean) and
+                 BSS-eval (images and sources);
+- ``evaluate`` : scoring a separated split (SI-SDR, SI-SDRi, BSS-eval);
 - ``train``    : Adam and NAdam with optax's semantics, train state, steps,
                  checkpoints and the epoch loop;
-- ``data``     : audio I/O, the waveform and codec loaders, the synthetic
+- ``data``     : audio I/O, the waveform and codec loaders, sequence packing
+                 and the device-resident packed corpus, the synthetic
                  fixture;
 - ``separate`` : wave-to-wave separation of a directory; Conv-TasNet's
                  overlapped-chunk stitching;
 - ``utils``    : the training configs and the metrics log;
 - ``tokenizer``: the codebook health metrics of the codec CLI;
-- ``cli``      : ``train`` and ``separate`` (uPIT BLSTM and Conv-TasNet),
-                 ``train --workload vqvae`` and ``codec-encode``,
+- ``cli``      : ``train`` (``pack`` too) and ``separate`` (uPIT BLSTM and
+                 Conv-TasNet), ``evaluate``, ``train --workload vqvae`` and
+                 ``codec-encode``,
                  ``codec-decode``, ``codec-roundtrip`` from the command line;
 - ``weights``  : JAX parameter trees ↔ ``state_dict``s;
 - ``_build``   : builds ``csrc/*.cu`` (with their ``*.cuh`` headers) with nvcc

@@ -8,6 +8,8 @@
         [--kernel {xla,pallas}] [--pad-quantum-seconds S] \\
         [--chunk-seconds S --chunk-overlap-seconds S] [--transfer-int16] \\
         [--device {cuda,cpu}]
+    python -m speech_separation_tpu_torch.cli evaluate --data-root D --est-dir O \\
+        [--split tt] [--per-utterance scores.jsonl]
     python -m speech_separation_tpu_torch.cli codec-encode --checkpoint-dir C \\
         --wav in.wav --out codes.npy|codes.npz [--device {cuda,cpu}]
     python -m speech_separation_tpu_torch.cli codec-decode --checkpoint-dir C \\
@@ -20,7 +22,9 @@ raw waveforms, writing ``train_config.json``, ``metrics.jsonl`` and the best
 checkpoints to the checkpoint directory. ``--workload upit``: the uPIT BLSTM
 (``blstm``) on the PIT loss of its masks, or Conv-TasNet (``tasnet``) wave to
 wave on the negative SI-SDR, with ``tasnet_pallas_trunk`` running the TCN
-trunk's forward and backward in the training CUDA kernels (bf16).
+trunk's forward and backward in the training CUDA kernels (bf16). With
+``pack`` the BLSTM trains on sequence-packed rows (``data/packing.py``), its
+recurrences in the training kernels' keep mode.
 ``--workload vqvae``: a VQ-VAE codec (``gumbel``, ``v2``, ``t2``, ``t3``,
 ``t3tok``) on the summed squared error plus its auxiliary losses, NAdam for
 the t-series and Adam otherwise. ``separate`` loads the best checkpoint: a
@@ -28,7 +32,9 @@ the t-series and Adam otherwise. ``separate`` loads the best checkpoint: a
 to the time-domain path, whole utterances or overlapped chunks, with
 ``--kernel pallas`` running the TCN trunk in the ``tcn_trunk`` CUDA kernel
 (bf16; the JAX flag's name) and ``--kernel xla`` the module's own forward.
-The codec commands serve a codec checkpoint: ``codec-encode`` writes the
+``evaluate`` scores a separated split against its references (SI-SDR,
+SI-SDRi and BSS-eval SDR/ISR/SIR/SAR, host-side numpy) and prints one JSON
+line. The codec commands serve a codec checkpoint: ``codec-encode`` writes the
 int32 codes (``.npz`` with ``deep`` and ``skip`` for t3tok; v2 has no code
 stream), ``codec-decode`` reconstructs from codes alone (gumbel and t3tok),
 ``codec-roundtrip`` runs the deterministic forward; each prints one JSON
@@ -206,6 +212,7 @@ def _train_vae(args) -> None:
 def cmd_train(args) -> None:
     from . import train
     from .data.datasets import WaveformLoader
+    from .data.packing import PackedWaveformLoader
     from .utils import MetricsLogger, UPitTrainConfig, load_config, save_config
 
     if args.workload == "vqvae":
@@ -223,51 +230,82 @@ def cmd_train(args) -> None:
             "topology only; a causal (cLN) Conv-TasNet trains through the module "
             "(tasnet_pallas_trunk=false)"
         )
+    if cfg.pack and cfg.variant != "blstm":
+        raise SystemExit("error: pack=true is only supported for the blstm variant")
     device = _device(args.device)
     model = _build_model(cfg, device)
-    if cfg.variant == "tasnet":
-        train_step, eval_step = train.make_time_domain_steps(
-            model,
-            compute_dtype=torch.bfloat16
-            if (cfg.bf16_compute or cfg.tasnet_pallas_trunk)
-            else None,
-            pallas_trunk=cfg.tasnet_pallas_trunk,
+    root = pathlib.Path(cfg.data_root)
+    compute_dtype = torch.bfloat16 if cfg.bf16_compute else None
+    if cfg.pack:
+        # sequence-packed rows (data/packing.py): one shape for every batch,
+        # each utterance trained as if alone. Shuffled epochs re-plan the
+        # rows, so their ragged last batch is dropped; validation keeps all.
+        train_loader, val_loader = (
+            PackedWaveformLoader(
+                root / split,
+                rows_per_batch=cfg.pack_rows_per_batch,
+                row_seconds=cfg.pack_row_seconds,
+                sample_rate=cfg.stft.sample_rate,
+                stft_size=cfg.stft.size,
+                stft_shift=cfg.stft.shift,
+                num_speakers=cfg.num_speakers,
+                shuffle=shuffle,
+                seed=cfg.seed,
+                transfer_int16=cfg.transfer_int16,
+                drop_remainder=shuffle,
+            )
+            for split, shuffle in ((cfg.train_split, True), (cfg.val_split, False))
         )
-
-        def batch_arrays(b):
-            return b.mix, b.sources, b.sample_lengths
-
-    else:
-        train_step, eval_step = train.make_upit_waveform_steps(
+        train_step, eval_step = train.make_upit_packed_steps(
             model,
             cfg.stft.size,
             cfg.stft.shift,
             cfg.num_speakers,
-            compute_dtype=torch.bfloat16 if cfg.bf16_compute else None,
+            num_segments=max(train_loader.num_segments, val_loader.num_segments),
+            compute_dtype=compute_dtype,
         )
 
         def batch_arrays(b):
-            return b.mix, b.sources, b.frame_lengths
+            return b.mix, b.sources, b.frame_seg
 
-    root = pathlib.Path(cfg.data_root)
-
-    def make_loader(split: str, shuffle: bool) -> WaveformLoader:
-        return WaveformLoader(
-            root / split,
-            batch_size=cfg.batch_size,
-            sample_rate=cfg.stft.sample_rate,
-            stft_size=cfg.stft.size,
-            stft_shift=cfg.stft.shift,
-            num_speakers=cfg.num_speakers,
-            shuffle=shuffle,
-            seed=cfg.seed,
-            transfer_int16=cfg.transfer_int16,
+        # a packed epoch is len(train_loader) steps, not utterances / batch size
+        steps_per_epoch = max(1, len(train_loader))
+    else:
+        train_loader, val_loader = (
+            WaveformLoader(
+                root / split,
+                batch_size=cfg.batch_size,
+                sample_rate=cfg.stft.sample_rate,
+                stft_size=cfg.stft.size,
+                stft_shift=cfg.stft.shift,
+                num_speakers=cfg.num_speakers,
+                shuffle=shuffle,
+                seed=cfg.seed,
+                transfer_int16=cfg.transfer_int16,
+            )
+            for split, shuffle in ((cfg.train_split, True), (cfg.val_split, False))
         )
+        steps_per_epoch = max(1, len(train_loader.names) // cfg.batch_size)
+        if cfg.variant == "tasnet":
+            train_step, eval_step = train.make_time_domain_steps(
+                model,
+                compute_dtype=torch.bfloat16 if cfg.tasnet_pallas_trunk else compute_dtype,
+                pallas_trunk=cfg.tasnet_pallas_trunk,
+            )
 
-    train_loader = make_loader(cfg.train_split, True)
-    state = train.TrainState.create(
-        model, _optimizer(cfg, max(1, len(train_loader.names) // cfg.batch_size)), cfg.seed
-    )
+            def batch_arrays(b):
+                return b.mix, b.sources, b.sample_lengths
+
+        else:
+            train_step, eval_step = train.make_upit_waveform_steps(
+                model, cfg.stft.size, cfg.stft.shift, cfg.num_speakers,
+                compute_dtype=compute_dtype,
+            )
+
+            def batch_arrays(b):
+                return b.mix, b.sources, b.frame_lengths
+
+    state = train.TrainState.create(model, _optimizer(cfg, steps_per_epoch), cfg.seed)
     ckpt = train.CheckpointManager(cfg.checkpoint_dir)
     save_config(cfg, pathlib.Path(cfg.checkpoint_dir) / "train_config.json")
     logger = MetricsLogger(pathlib.Path(cfg.checkpoint_dir) / "metrics.jsonl")
@@ -276,7 +314,7 @@ def cmd_train(args) -> None:
         train_step,
         eval_step,
         train_loader,
-        make_loader(cfg.val_split, False),
+        val_loader,
         batch_arrays,
         epochs=cfg.epochs,
         patience=cfg.patience,
@@ -437,6 +475,34 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
                 written += 1
     wait_for_pending_writes()
     print(json.dumps({"written": written, "out_dir": str(out_dir), "device": str(device)}))
+
+
+def cmd_evaluate(args) -> None:
+    """Score a separated split: one JSON line of dB metrics (host-side numpy)."""
+    from .evaluate import evaluate_directory
+
+    est_dir = pathlib.Path(args.est_dir)
+    if not est_dir.is_dir():
+        raise SystemExit(f"error: estimate directory not found: {est_dir}")
+    if not any(est_dir.glob("*.wav")):
+        raise SystemExit(f"error: no .wav estimates in {est_dir} (run `separate` first)")
+    per_utt, agg = evaluate_directory(args.data_root, args.est_dir, args.split)
+    if args.per_utterance:
+        out = pathlib.Path(args.per_utterance)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        with open(out, "w") as fh:
+            for record in per_utt:
+                fh.write(json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                                     for k, v in record.items()}) + "\n")
+    print(json.dumps({
+        "si_sdr_db": round(agg["si_sdr"], 4),
+        "si_sdri_db": round(agg["si_sdri"], 4),
+        "sdr_db": round(agg["sdr"], 4),
+        "isr_db": round(agg["isr"], 4),
+        "sir_db": round(agg["sir"], 4),
+        "sar_db": round(agg["sar"], 4),
+        "utterances": agg["utterances"],
+    }))
 
 
 def _stack_frames(wav, variant: str, frame_size: int = 40):
@@ -630,6 +696,14 @@ def main(argv=None) -> None:
     )
     _add_device(p)
     p.set_defaults(func=cmd_separate)
+
+    p = sub.add_parser("evaluate", help="score separated wavs (SI-SDR, SI-SDRi, BSS SDR/SIR/SAR)")
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--est-dir", required=True)
+    p.add_argument("--split", default="tt")
+    p.add_argument("--per-utterance", default=None,
+                   help="write per-utterance scores to this JSONL")
+    p.set_defaults(func=cmd_evaluate)
 
     for name, func, helptext, src in (
         ("codec-encode", cmd_codec_encode, "tokenise a wav with a trained VQ codec", "--wav"),

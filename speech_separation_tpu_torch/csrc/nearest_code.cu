@@ -16,7 +16,9 @@
 // and each ||e||^2 sums d = 0..S-1 in order with fmaf from 0; the score is
 // fmaf(-2, dot, ||e||^2). Exact ties go to the lowest index (a thread visits
 // its codes in ascending order with a strict <, and every merge compares
-// (score, index) lexicographically); a row whose scores are all NaN gets 0.
+// (score, index) lexicographically). NaN orders below every number, as in
+// torch.argmin and jnp.argmin: a row holding a NaN score gets its first NaN's
+// index, so a row whose scores are all NaN gets 0.
 //
 // What bounds it on this card: 2*N*G*S*K fp32 operations against
 // 4*(N*G*S + G*S*K + N*G) compulsory bytes. At the codec's shapes (the deep
@@ -300,20 +302,28 @@ __device__ __forceinline__ void compare(const float (&acc)[R][kCodes], const flo
         const float score = fmaf(-2.f, acc[i][v], sq);
         if (SST_VQ_SKIP & 4) {
           best[i] += score;
-        } else if (score < best[i]) {
-          best[i] = score;
-          idx[i] = k0 + c;
+        } else {
+          // score < best, or a NaN score while best is a number: NaN below
+          // every number, and once best is NaN nothing replaces it, so the
+          // first NaN stays (unordered-or-less and'ed with best == best)
+          const bool lower = !(score >= best[i]) & (best[i] == best[i]);
+          best[i] = lower ? score : best[i];
+          idx[i] = lower ? k0 + c : idx[i];
         }
       }
     }
   }
 }
 
+// (score, index) lexicographically, NaN below every number and NaNs equal.
+// Branch-free: a branch here, inlined in every shuffle round of the merge,
+// cost a skip stage 18% (scripts/torch_probe_vq.py --beside)
 __device__ __forceinline__ void take(float& best, int& idx, float other, int other_idx) {
-  if (other < best || (other == best && other_idx < idx)) {
-    best = other;
-    idx = other_idx;
-  }
+  const bool nan = other != other, best_nan = best != best;
+  const bool lower = (other < best) | (nan & !best_nan)
+                     | (((other == best) | (nan & best_nan)) & (other_idx < idx));
+  best = lower ? other : best;
+  idx = lower ? other_idx : idx;
 }
 
 struct Smem {
@@ -451,7 +461,7 @@ __device__ void search_step(const Args& a, const Smem& sm, const float* xs, int 
     float b = mscore[r];
     int k = midx[r];
     for (int w = 1; w < kCodeWarps; ++w) take(b, k, mscore[w * kStepRows + r], midx[w * kStepRows + r]);
-    // a row whose every score is NaN keeps no index: it gets 0
+    // a row with no score below +inf keeps no index: it gets 0
     if (n < a.rows) a.out[static_cast<size_t>(n) * a.groups + g0 + j] = k == INT_MAX ? 0 : k;
   }
 }

@@ -10,7 +10,8 @@ count through a static permutation table:
 - the minimum over permutations per utterance, **summed** over the batch
   (``reduction="mean"`` averages, ``"none"`` returns ``[B]``).
 
-:func:`pit_si_sdr_loss` is the time-domain objective (Conv-TasNet): the
+:func:`pit_loss_packed` is the same loss over sequence-packed rows, per
+utterance. :func:`pit_si_sdr_loss` is the time-domain objective (Conv-TasNet): the
 negative permutation-best mean SI-SDR over waveforms.
 """
 
@@ -20,7 +21,7 @@ import itertools
 
 import torch
 
-__all__ = ["pairwise_pit_costs", "pit_loss", "pit_si_sdr_loss"]
+__all__ = ["pairwise_pit_costs", "pit_loss", "pit_loss_packed", "pit_si_sdr_loss"]
 
 
 def _split_speakers(x: torch.Tensor, num_speakers: int) -> torch.Tensor:
@@ -77,6 +78,47 @@ def pit_loss(
     if reduction == "mean":
         return per_utt.mean()
     return per_utt
+
+
+def pit_loss_packed(
+    preds: torch.Tensor,
+    labels: torch.Tensor,
+    frame_seg: torch.Tensor,
+    num_speakers: int = 2,
+    num_segments: int = 8,
+    reduction: str = "sum",
+) -> torch.Tensor:
+    """:func:`pit_loss` over sequence-packed rows (``data/packing.py``).
+
+    ``frame_seg [B, T]`` gives every frame its segment within its row, in
+    ``[0, num_segments)``, or ``-1`` for tail frames of no utterance, which
+    match no segment and so add nothing. The permutation search and the
+    length normalisation run per segment, so the sum equals the sum of
+    :func:`pit_loss` over the utterances run one by one; a segment with no
+    frames adds 0. ``"mean"`` divides by the segments that have frames,
+    ``"none"`` returns ``[B, num_segments]``."""
+    if reduction not in ("sum", "mean", "none"):
+        raise ValueError(f"unknown reduction {reduction!r}")
+    preds = _split_speakers(preds, num_speakers)
+    labels = _split_speakers(labels, num_speakers)
+    diff = preds[:, :, :, None, :] - labels[:, :, None, :, :]  # [B, T, S_pred, S_label, F]
+    pair_frame = diff.square().sum(dim=-1)  # [B, T, S_pred, S_label]
+    segments = torch.arange(num_segments, device=frame_seg.device)
+    onehot = (frame_seg[..., None] == segments).to(preds.dtype)  # [B, T, G]
+    seg_pair = torch.einsum("btij,btg->bgij", pair_frame, onehot)  # [B, G, S_pred, S_label]
+    seg_len = onehot.sum(dim=1)  # [B, G] frames a segment
+    perms = torch.tensor(
+        list(itertools.permutations(range(num_speakers))), device=preds.device
+    )  # [S!, S]
+    idx = torch.arange(num_speakers, device=preds.device)
+    per_perm = seg_pair[:, :, idx[None, :], perms].sum(dim=-1)  # [B, G, S!]
+    best = per_perm.min(dim=-1).values
+    per_seg = torch.where(seg_len > 0, best / seg_len.clamp(min=1.0), 0.0)
+    if reduction == "sum":
+        return per_seg.sum()
+    if reduction == "mean":
+        return per_seg.sum() / (seg_len > 0).sum().clamp(min=1)
+    return per_seg
 
 
 def pit_si_sdr_loss(

@@ -11,8 +11,14 @@ the recurrence runs in ``ops/lstm_cuda.py`` (the CUDA kernel on a GPU tensor,
 its plain loop on the CPU, or the plain loop anywhere with ``plain=True``).
 
 Like the JAX layers, padded timesteps are processed as ordinary inputs, and
-the backward direction runs over the whole padded length. :func:`segment_keep`
-builds the carry gate of sequence-packed rows for the training recurrence.
+the backward direction runs over the whole padded length.
+
+Sequence-packed rows (``data/packing.py``) pass ``segment_ids [B, T]``: the
+carry is reset wherever the segment changes, in each direction's own scan
+order (:func:`segment_keeps`), so each packed utterance runs as if alone. The
+serving kernel has no carry gate, so a packed forward runs the training
+forward kernel (``lstm_train_forward``) in its keep mode and keeps only its
+hidden states; it is not differentiable (serve it under ``torch.no_grad``).
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ import torch
 from torch import nn
 
 from ..ops.lstm_cuda import lstm_recurrence, lstm_recurrence_plain
+from ..ops.lstm_train_cuda import lstm_train_forward, lstm_train_forward_plain
 
-__all__ = ["LSTM", "BiLSTM", "segment_keep"]
+__all__ = ["LSTM", "BiLSTM", "segment_keep", "segment_keeps"]
 
 
 def segment_keep(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -32,6 +39,14 @@ def segment_keep(segment_ids: torch.Tensor) -> torch.Tensor:
     same = segment_ids[:, 1:] == segment_ids[:, :-1]
     first = torch.ones_like(same[:, :1])
     return torch.cat([first, same], dim=1).to(torch.float32)
+
+
+def segment_keeps(segment_ids: torch.Tensor) -> torch.Tensor:
+    """The bidirectional carry gate ``[2, B, T]`` float32, on ``segment_ids``'
+    device: the forward direction's :func:`segment_keep` and the backward
+    direction's, each indexed by its own scan step (the backward one over
+    the time-reversed ids)."""
+    return torch.stack([segment_keep(segment_ids), segment_keep(segment_ids.flip(1))])
 
 
 class LSTM(nn.Module):
@@ -67,7 +82,10 @@ class LSTM(nn.Module):
                 nn.init.orthogonal_(recurrents[d], generator=generator)
             self.bias[..., features : 2 * features] = 1.0
 
-    def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, keep: torch.Tensor | None = None,
+                plain: bool = False) -> torch.Tensor:
+        """``keep [2, B, T]`` (two directions only): the carry gate of packed
+        rows, run through the training forward kernel (no gradient)."""
         b, t, f = x.shape
         dirs, h4 = self.directions, 4 * self.features
         # one GEMM per direction over every timestep, bias fused: [D, B, T, 4H]
@@ -77,6 +95,9 @@ class LSTM(nn.Module):
             self.kernel.view(dirs, f, h4),
         ).view(dirs, b, t, h4)
         recurrent = self.recurrent_kernel.view(dirs, self.features, h4)
+        if keep is not None:
+            run = lstm_train_forward_plain if plain else lstm_train_forward
+            return run(xw, recurrent, keep=keep)[0]
         run = lstm_recurrence_plain if plain else lstm_recurrence
         return run(xw, recurrent, reverse=tuple(d == 1 for d in range(dirs)))
 
@@ -90,5 +111,7 @@ class BiLSTM(nn.Module):
         super().__init__()
         self.cells = LSTM(input_size, features, directions=2, generator=generator)
 
-    def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-        return self.cells(x, plain=plain)
+    def forward(self, x: torch.Tensor, segment_ids: torch.Tensor | None = None, *,
+                plain: bool = False) -> torch.Tensor:
+        keep = None if segment_ids is None else segment_keeps(segment_ids)
+        return self.cells(x, keep=keep, plain=plain)

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.lstm_train_cuda import bilstm_train
-from .blstm import BiLSTM
+from .blstm import BiLSTM, segment_keeps
 
 __all__ = ["Dense", "UPitBlstm", "dropout"]
 
@@ -93,14 +93,23 @@ class UPitBlstm(nn.Module):
             self.add_module(f"bilstm_{i}", BiLSTM(width, hidden, generator=generator))
         self.heads = _MaskHeads(2 * hidden, output_size, num_speakers, generator=generator)
 
-    def forward(self, magnitude: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    def forward(
+        self,
+        magnitude: torch.Tensor,
+        *,
+        segment_ids: torch.Tensor | None = None,
+        plain: bool = False,
+    ) -> torch.Tensor:
         """``[B, T, input_size]`` → ``[B, T, num_speakers * output_size]`` in the
         parameters' dtype. ``plain=True`` runs the recurrences' plain loop
-        instead of the CUDA kernel (the reference path on a GPU)."""
+        instead of the CUDA kernel (the reference path on a GPU).
+        ``segment_ids [B, T]``: sequence-packed rows, each utterance isolated
+        (the recurrences then run the training forward kernel in its keep
+        mode; serve under ``torch.no_grad``)."""
         x = magnitude.to(self.input_proj.kernel.dtype)
         h = torch.tanh(self.input_proj(x))
         for i in range(self.num_layers):
-            h = getattr(self, f"bilstm_{i}")(h, plain=plain)
+            h = getattr(self, f"bilstm_{i}")(h, segment_ids, plain=plain)
         return self.heads(h, x)
 
     def train_forward(
@@ -109,6 +118,7 @@ class UPitBlstm(nn.Module):
         *,
         generator: torch.Generator | None = None,
         compute_dtype: torch.dtype | None = None,
+        segment_ids: torch.Tensor | None = None,
         plain: bool = False,
     ) -> torch.Tensor:
         """Differentiable training forward (counterpart of
@@ -122,8 +132,12 @@ class UPitBlstm(nn.Module):
         on the CPU or with ``plain=True``). ``generator=None`` disables
         dropout (eval); otherwise dropout at ``dropout_rate`` follows every
         BiLSTM layer, with bits from ``generator``, not JAX's stream.
+        ``segment_ids [B, T]`` (sequence-packed rows, ``data/packing.py``)
+        runs every recurrence with the carry gate of
+        :func:`~.blstm.segment_keeps`, built on the ids' device.
         """
         dtype = compute_dtype or torch.float32
+        keep = None if segment_ids is None else segment_keeps(segment_ids)
         p = {name: value.to(dtype) for name, value in self.named_parameters()}
 
         def dense(prefix: str, x: torch.Tensor) -> torch.Tensor:
@@ -138,6 +152,7 @@ class UPitBlstm(nn.Module):
                 p[f"{cells}.kernel"],
                 p[f"{cells}.recurrent_kernel"],
                 p[f"{cells}.bias"],
+                keep=keep,
                 compute_dtype=dtype,
                 plain=plain,
             ).to(dtype)

@@ -243,8 +243,9 @@ def _forward_launch(
     gates=None, c_all=None, keep=None,
 ) -> None:
     """The forward kernel on prepared tensors, one cooperative launch per row
-    slice of ``plan``, each counted on ``wrapper.launches``: the serving entry,
-    or the training one when ``gates`` and ``c_all`` are given. Raises if the
+    slice of ``plan``, each counted on ``wrapper.launches`` (and, with a carry
+    gate, on ``wrapper.keep_launches``): the serving entry, or the training
+    one when ``gates`` and ``c_all`` are given. Raises if the
     card refuses a launch (a grid that cannot be resident at once)."""
     dirs, batch, steps, four_h = xw.shape
     counters = torch.zeros((len(plan.slices), dirs, plan.row_blocks), dtype=torch.int32,
@@ -268,6 +269,8 @@ def _forward_launch(
                 )
             _build.check(code, wrapper.__name__)
             wrapper.launches += 1
+            if keep is not None:
+                wrapper.keep_launches += 1
 
 
 lstm_recurrence.launches = 0

@@ -231,6 +231,7 @@ def lstm_train_forward(
 
 
 lstm_train_forward.launches = 0
+lstm_train_forward.keep_launches = 0  # the launches of those with a carry gate
 
 
 def lstm_train_backward_plain(
@@ -347,9 +348,12 @@ def _backward_launch(gates, c_all, dy, recurrent, keep, dgates, plan: BackwardPl
         )
     _build.check(code, "lstm_train_backward")
     lstm_train_backward.launches += 1
+    if keep is not None:
+        lstm_train_backward.keep_launches += 1
 
 
 lstm_train_backward.launches = 0
+lstm_train_backward.keep_launches = 0  # the launches of those with a carry gate
 
 
 def _input_projection(x, kernel, bias, dtype):

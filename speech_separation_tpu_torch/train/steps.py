@@ -3,10 +3,15 @@
 :func:`make_upit_waveform_steps` runs the whole pipeline on the device from
 padded waveforms: int16 dequantization → STFT (the ``stft_cuda`` kernel) →
 PSM features → ``UPitBlstm`` training forward (the BiLSTM training kernels)
-→ PIT loss → backward → Adam. :func:`make_time_domain_steps` trains
-Conv-TasNet wave to wave on the negative permutation-best SI-SDR, through the
-module's own autograd or, with ``pallas_trunk=True``, through the TCN trunk's
-training kernels (``models/tasnet_serving.py::train_apply``).
+→ PIT loss → backward → Adam. :func:`make_upit_packed_steps` does the same
+over sequence-packed rows (``data/packing.py``): the recurrences run the
+training kernels in their keep mode and the loss is
+:func:`~..losses.pit.pit_loss_packed`, per utterance;
+:func:`make_upit_packed_resident_steps` takes row indices into a corpus held
+on the device (``data/device_dataset.py``). :func:`make_time_domain_steps`
+trains Conv-TasNet wave to wave on the negative permutation-best SI-SDR,
+through the module's own autograd or, with ``pallas_trunk=True``, through the
+TCN trunk's training kernels (``models/tasnet_serving.py::train_apply``).
 :func:`make_vae_steps` trains the VQ-VAE codecs on their reconstruction loss
 plus their auxiliary losses, every nearest-code search in the
 ``nearest_code`` kernel.
@@ -18,13 +23,19 @@ from typing import Callable
 
 import torch
 
-from ..losses.pit import pit_loss, pit_si_sdr_loss
+from ..losses.pit import pit_loss, pit_loss_packed, pit_si_sdr_loss
 from ..losses.sisdr import summed_squared_error
 from ..ops.features import psm_features
 from ..ops.quant import dequant_i16
 from .state import TrainState
 
-__all__ = ["make_upit_waveform_steps", "make_time_domain_steps", "make_vae_steps"]
+__all__ = [
+    "make_upit_waveform_steps",
+    "make_upit_packed_steps",
+    "make_upit_packed_resident_steps",
+    "make_time_domain_steps",
+    "make_vae_steps",
+]
 
 
 def make_upit_waveform_steps(
@@ -55,17 +66,90 @@ def make_upit_waveform_steps(
         )
         return pit_loss(preds.to(torch.float32), feats.labels, frame_lengths, num_speakers)
 
-    def train_step(state: TrainState, mix, sources, frame_lengths):
+    return _steps(_loss, lambda mix, sources, frame_lengths: (mix, sources, frame_lengths))
+
+
+def _packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype, plain):
+    """The packed-row loss of :func:`make_upit_packed_steps` and
+    :func:`make_upit_packed_resident_steps`."""
+
+    def _loss(mix, sources, frame_seg, generator):
+        feats = psm_features(dequant_i16(mix), dequant_i16(sources), size, shift, plain=plain)
+        preds = model.train_forward(
+            feats.magnitude, generator=generator, compute_dtype=compute_dtype,
+            segment_ids=frame_seg, plain=plain,
+        )
+        return pit_loss_packed(
+            preds.to(torch.float32), feats.labels, frame_seg, num_speakers, num_segments
+        )
+
+    return _loss
+
+
+def _steps(loss_fn, arrays: Callable) -> tuple[Callable, Callable]:
+    """``(train_step, eval_step)`` over ``loss_fn(*arrays(*args), generator)``."""
+
+    def train_step(state: TrainState, *args):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = _loss(mix, sources, frame_lengths, state.generator)
+        loss = loss_fn(*arrays(*args), state.generator)
         loss.backward()
         return state.apply_gradients(), loss.detach()
 
     @torch.no_grad()
-    def eval_step(state: TrainState, mix, sources, frame_lengths):
-        return _loss(mix, sources, frame_lengths, None)
+    def eval_step(state: TrainState, *args):
+        return loss_fn(*arrays(*args), None)
 
     return train_step, eval_step
+
+
+def make_upit_packed_steps(
+    model,
+    size: int = 256,
+    shift: int = 128,
+    num_speakers: int = 2,
+    num_segments: int = 8,
+    compute_dtype: torch.dtype | None = None,
+    plain: bool = False,
+) -> tuple[Callable, Callable]:
+    """:func:`make_upit_waveform_steps` over sequence-packed rows: ``(state,
+    mix [R, row_samples], sources [R, n, row_samples], frame_seg [R,
+    row_frames])``, ``frame_seg`` int32 with ``-1`` on tail frames and at
+    most ``num_segments`` segments a row.
+
+    Each packed utterance is trained as if alone: the carry gate resets the
+    recurrences at every segment change, in both directions (on a GPU, the
+    training kernels' keep mode), and :func:`pit_loss_packed` searches the
+    permutations and normalises the length per segment. The loss is the sum
+    over the utterances, the same sum the unpacked step reports."""
+    loss = _packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype, plain)
+    return _steps(loss, lambda mix, sources, frame_seg: (mix, sources, frame_seg))
+
+
+def make_upit_packed_resident_steps(
+    model,
+    mix_all: torch.Tensor,
+    sources_all: torch.Tensor,
+    frame_seg_all: torch.Tensor,
+    size: int = 256,
+    shift: int = 128,
+    num_speakers: int = 2,
+    num_segments: int = 8,
+    compute_dtype: torch.dtype | None = None,
+    plain: bool = False,
+) -> tuple[Callable, Callable]:
+    """:func:`make_upit_packed_steps` over a corpus held on the device
+    (``data.device_dataset.ResidentPackedCorpus``): each step takes only
+    ``(state, idx [R])``, gathers those rows on the device and runs the same
+    packed loss, so its losses and gradients equal the loader-fed steps' on
+    the same rows."""
+    loss = _packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype, plain)
+
+    def gather(idx):
+        idx = idx.to(mix_all.device)
+        return (mix_all.index_select(0, idx), sources_all.index_select(0, idx),
+                frame_seg_all.index_select(0, idx))
+
+    return _steps(loss, gather)
 
 
 def make_time_domain_steps(

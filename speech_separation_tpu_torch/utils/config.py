@@ -4,11 +4,12 @@
 :class:`UPitTrainConfig` keeps the JAX package's field names and defaults, so
 one ``cfg.json`` configures either package. ``variant`` is ``"blstm"`` or
 ``"tasnet"``, both served and trained (``tasnet_pallas_trunk`` trains
-Conv-TasNet through the trunk's training kernels). Fields whose feature the
-port does not serve yet raise ``ValueError`` when set, rather than being
-ignored: ``variant="conv"``, ``pack``, ``dynamic_mix``, and a mesh of more
-than one device. ``blstm_pallas_scan`` is accepted and has no effect: on a GPU
-the port always runs its BiLSTM training kernels.
+Conv-TasNet through the trunk's training kernels; ``pack`` trains the BLSTM
+on sequence-packed rows). Fields whose feature the port does not serve yet
+raise ``ValueError`` when set, rather than being ignored: ``variant="conv"``,
+``dynamic_mix``, and a mesh of more than one device. ``blstm_pallas_scan`` is
+accepted and has no effect: on a GPU the port always runs its BiLSTM training
+kernels.
 
 :class:`VaeTrainConfig` is the codecs' config, the JAX dataclass's fields and
 defaults; every variant (``gumbel``, ``v2``, ``t2``, ``t3``, ``t3tok``) is
@@ -71,7 +72,7 @@ class UPitTrainConfig:
     grad_clip_norm: float = 0.0  # >0: optax-style global-norm clipping
     bf16_compute: bool = False  # mixed-precision train step
     blstm_pallas_scan: bool = False  # no effect: the port always runs its kernels
-    pack: bool = False  # not served by the port yet
+    pack: bool = False  # sequence-packed rows (blstm only)
     transfer_int16: bool = False  # int16 PCM to the device, dequantized in the step
     pack_rows_per_batch: int = 16
     pack_row_seconds: float = 16.0
@@ -93,8 +94,6 @@ class UPitTrainConfig:
         unserved = []
         if self.variant not in ("blstm", "tasnet"):
             unserved.append(f"variant={self.variant!r} (only 'blstm' and 'tasnet')")
-        if self.pack:
-            unserved.append("pack=true (sequence-packed training)")
         if self.dynamic_mix:
             unserved.append("dynamic_mix=true")
         if self.mesh.model > 1 or self.mesh.data not in (None, 1):

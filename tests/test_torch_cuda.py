@@ -419,6 +419,60 @@ def test_train_step_kernel_path_matches_plain(cuda_device):
     assert ((params["kernel"] - params["plain"]).norm() / params["plain"].norm()).item() <= 1e-4
 
 
+def test_packed_train_step_kernel_path_matches_plain(cuda_device, tmp_path):
+    """A packed batch (4 rows, H = 64): the kernel path's loss and gradients,
+    with both recurrences in their keep mode, equal the plain loops'; its
+    steps too; and its loss is the sum of each utterance's loss run alone."""
+    from speech_separation_tpu_torch import train
+    from speech_separation_tpu_torch.data.packing import PackedWaveformLoader
+    from speech_separation_tpu_torch.losses.pit import pit_loss_packed
+    from speech_separation_tpu_torch.ops.features import psm_features
+
+    root = make_synthetic_fixture(tmp_path / "fx", utterances_per_split={"tr": 1, "cv": 1, "tt": 9},
+                                  min_seconds=0.5, max_seconds=1.5)
+    loader = PackedWaveformLoader(root / "tt", rows_per_batch=4, row_seconds=2.5)
+    b = next(iter(loader))
+    assert b.mix.shape[0] == 4 and b.frame_seg.max() >= 1  # rows of several utterances
+    mix, sources, seg = (torch.from_numpy(a).to(cuda_device) for a in (b.mix, b.sources, b.frame_seg))
+    losses, grads, params = {}, {}, {}
+    for kind in ("kernel", "plain"):
+        plain = kind == "plain"
+        model = UPitBlstm(hidden=64, num_layers=2, dropout_rate=0.0,
+                          generator=torch.Generator().manual_seed(0)).to(cuda_device)
+        before = (lstm_train_forward.keep_launches, lstm_train_backward.keep_launches)
+        feats = psm_features(mix, sources, plain=plain)
+        preds = model.train_forward(feats.magnitude, segment_ids=seg, plain=plain)
+        loss = pit_loss_packed(preds, feats.labels, seg, num_segments=loader.num_segments)
+        loss.backward()
+        launched = (lstm_train_forward.keep_launches - before[0],
+                    lstm_train_backward.keep_launches - before[1])
+        assert launched == ((2, 2) if kind == "kernel" else (0, 0))  # one a layer
+        grads[kind] = [p.grad.detach().clone() for p in model.parameters()]
+        state = train.TrainState.create(model, train.exponential_decay_adam(), seed=0)
+        train_step, eval_step = train.make_upit_packed_steps(
+            model, num_segments=loader.num_segments, plain=plain)
+        losses[kind] = [loss.item()] + [train_step(state, mix, sources, seg)[1].item()
+                                        for _ in range(2)] + [eval_step(state, mix, sources, seg).item()]
+        params[kind] = torch.cat([p.detach().flatten() for p in model.parameters()])
+    np.testing.assert_allclose(losses["kernel"], losses["plain"], rtol=1e-5)
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert ((got - want).norm() / want.norm()).item() <= 1e-4
+    assert ((params["kernel"] - params["plain"]).norm() / params["plain"].norm()).item() <= 1e-4
+
+    # the kernel path's packed loss is the sum of each utterance's loss alone
+    model = UPitBlstm(hidden=64, num_layers=2, dropout_rate=0.0,
+                      generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    state = train.TrainState.create(model, train.exponential_decay_adam(), seed=0)
+    _, eval_packed = train.make_upit_packed_steps(model, num_segments=loader.num_segments)
+    _, eval_single = train.make_upit_waveform_steps(model)
+    singles = {}
+    for one in WaveformLoader(root / "tt", batch_size=1, pad_quantum_samples=1):  # unpadded
+        args = (torch.from_numpy(a).to(cuda_device) for a in (one.mix, one.sources, one.frame_lengths))
+        singles[one.names[0]] = eval_single(state, *args).item()
+    want = sum(singles[n] for row in b.names for n in row)
+    np.testing.assert_allclose(eval_packed(state, mix, sources, seg).item(), want, rtol=1e-4)
+
+
 def _trunk_inputs(batch, frames, cb, ch, dils, device, seed):
     n = len(dils)
     vecs = _normal((n, 8, max(ch, 2 * cb)), seed) * 0.1
@@ -809,6 +863,38 @@ def test_nearest_code_all_nan_rows_get_index_zero(cuda_device):
     flat[[3, 17, 39], 5:9] = float("nan")  # group 0 of three rows
     got = nearest_code(flat, _normal((2, 16, 300), seed=117).to(cuda_device))
     assert got[[3, 17, 39], 0].tolist() == [0, 0, 0]
+
+
+def _exact(t):
+    """Multiples of 1/32 in [-1, 1]: every score exact in fp32 in any order."""
+    return (torch.round(t * 8).clamp(-32, 32) / 32).contiguous()
+
+
+# resident and streamed codebooks (D = 256, K = 1,024), 2-D and grouped
+@pytest.mark.parametrize("form,s,k", [("2d", 64, 512), ("2d", 256, 1024), ("grouped", 16, 300),
+                                      ("grouped", 256, 1024)])
+@pytest.mark.parametrize("case", ["nan_column", "inf_row"])
+def test_nearest_code_picks_the_first_nan_as_argmin_does(cuda_device, form, s, k, case):
+    g = 1 if form == "2d" else 2
+    flat, codebook = _exact(_normal((700, g * s), seed=118)), _exact(_normal((g, s, k), seed=119))
+    rows = [0, 17, 350, 699]
+    if case == "nan_column":  # columns 2 and 7 of the last group score NaN on every row
+        codebook[g - 1, 3, 2] = codebook[g - 1, 0, 7] = float("nan")
+        want_rows, want_pick = list(range(700)), 2
+    else:  # inf x 0 = NaN: codes 9 and 40 of the last group on the rows holding an inf
+        flat[rows, (g - 1) * s + 5] = torch.tensor([float("inf"), -float("inf")] * 2)
+        column = codebook[g - 1, 5]
+        column[column == 0] = 1 / 32  # no other code holds a 0 there
+        column[[9, 40]] = 0.0
+        want_rows, want_pick = rows, 9
+    book = codebook[0].contiguous() if form == "2d" else codebook
+    want = nearest_code_plain(flat, book)  # torch.argmin on the CPU
+    last = want if form == "2d" else want[:, g - 1]
+    assert last[want_rows].tolist() == [want_pick] * len(want_rows)
+    flat, book = flat.to(cuda_device), book.to(cuda_device)
+    got, again = nearest_code(flat, book), nearest_code(flat, book)
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    assert torch.equal(got, nearest_code_plain(flat, book))  # and on the card
 
 
 def test_vector_quantizers_on_the_card_launch_the_kernel(cuda_device):
