@@ -54,7 +54,8 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 9. the Conv-TasNet trunk kernel against its plain version at full width
    (cb 128, ch 256, 21 blocks, dilations 1 to 64) at B=4 × K=8000 frames and
    a ragged K=8003, at B=7 × K=3000 (more items than its plan keeps in
-   flight) and B=3 × K=50 (below the dilation-64 halo), weights from the full-width ``ConvTasNet``
+   flight), B=3 × K=50 (below the dilation-64 halo) and the window streaming
+   engine's B=1 × K=2000 and K=4000, weights from the full-width ``ConvTasNet``
    (2,226,092 random parameters from seed 0, norms, biases and slopes
    perturbed), with a bit-identical rerun;
 10. Conv-TasNet serving path — a port checkpoint of that model, then ``cli
@@ -132,13 +133,42 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    1,001 frames): the train step, kernel path in fp32 and bf16 and plain
    path in fp32, in audio-seconds trained per second counting only the true
    audio, with the batch's frame occupancy and phase 8's bucketed rate;
-20. scoring — ``cli evaluate`` on the ``tt`` output of phases 4, 7, 10, 13
-   and 18, each JSON line finite and equal to ``evaluate_directory`` in
+20. scoring — ``cli evaluate`` on the ``tt`` output of phases 4, 7, 10, 13,
+   18, 22 and 23, each JSON line finite and equal to ``evaluate_directory`` in
    process; then the overfit quality run of ``scripts/fixture_quality_run.py``
    on a synthetic fixture: the full-width ``UPitBlstm`` in fp32 trained 500
    steps on one batch of 4 easy-profile utterances, that split separated and
    scored (SI-SDR, SI-SDRi, BSS SDR) beside the untrained model's; the
-   SI-SDRi must gain at least 3 dB.
+   SI-SDRi must gain at least 3 dB (run last, after phases 21 to 23);
+21. dynamic-mixing training — a LibriMix-shaped corpus from
+   ``make_synthetic_librimix`` (hard profile, wav8k/min, train-100 32 and dev
+   8 utterances of 2 to 6 s), ``cli train`` with ``dynamic_mix``: Conv-TasNet
+   at full width with ``tasnet_pallas_trunk`` for 2 epochs (float batches;
+   the trunk's training kernels launched, no plain pass) and the BLSTM in fp32
+   for 1 epoch on the int16 path (the STFT and the training recurrences
+   launched, no plain loop); every dynamic batch the trainer saw has mix ==
+   Σ sources exactly; ``cli separate --kernel pallas`` and ``cli evaluate``
+   of dev, finite; the loader's host time a batch of 16 × 4 s, dynamic
+   against fixed mixtures, beside the Conv-TasNet kernel-path step on a
+   dynamic batch;
+22. window streaming — the full-width gLN Conv-TasNet (win 16) over a 20 s
+   mix (``default_rng(0)`` × 0.1) at ``scripts/streaming_latency_bench.py``'s
+   (hop, context) of (0.25, 1.75), (0.5, 1.5) and (1.0, 3.0) s, through
+   ``cuda_apply`` (one trunk kernel launch a hop, counted), ``cuda_apply``
+   with the plain trunk and the bf16 module: median and p90 ms a hop after 2
+   warm-up hops and the real-time factor; the kernel stream against the
+   plain-trunk stream with each hop's speaker order aligned, and the hops
+   whose permutation picks differ; ``cuda_apply``'s time on the device at one
+   window beside the host's weight restacking it does every call; the trunk
+   kernel alone at B=1 × K=2000 and 4000 against its plain version and bound;
+   ``cli separate --kernel pallas --streaming-hop-seconds 0.5`` on phase 10's
+   checkpoint and ``tt`` split (one launch a hop);
+23. stateful streaming — the full-width causal Conv-TasNet in fp32 over a 4 s
+   mix at hops of 16, 80, 400 and 4000 samples: the emissions against
+   ``model(mix)`` offline within 1e-4 × max(1, max |offline|), median and p90
+   ms a push, the real-time factor and the device operations a push (under
+   the profiler); ``cli separate --streaming-hop-seconds 0.05`` on a causal
+   checkpoint (engine ``stateful_exact``, no trunk kernel).
 
 Phase 15 also holds the search's NaN picks: a NaN score orders below every
 number, so a row holding one gets its first NaN's index, as ``torch.argmin``
@@ -153,6 +183,12 @@ TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32), NVIDIA's H100 SXM figures
 against 4 (N D + D K + N) bytes); and the time of one PyTorch call computing
 the same function where there is one (``torch.stft``, cuDNN ``nn.LSTM``),
 used nowhere in the port.
+
+Phases run in the order 1 to 19, 21 to 23, then 20. The kernels line gives
+each kernel's launches on the dynamic-mixing path of phase 21
+(``launches_dynamic_mix``) and the trunk kernel's on the window streaming
+path of phase 22 (``launches_streaming``, ``launches_streaming_cli``) with its
+times at B = 1.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -252,6 +288,26 @@ PACKED_SUM_REL = 1e-4
 # batch of 4 utterances, train == test; the trained SI-SDRi must beat the
 # untrained model's by this much
 QUALITY_STEPS, QUALITY_GAIN_DB = 500, 3.0
+# Phase 21: a LibriMix-shaped corpus (make_synthetic_librimix, hard profile,
+# wav8k/min): train-100 and dev utterances of 2 to 6 s; the loader's host time
+# a batch of 16 x 4 s, dynamic against fixed mixtures
+DM_TRAIN, DM_DEV = 32, 8
+DM_TIMING_BATCH, DM_TIMING_SECONDS = 16, 4.0
+# Phase 22: the window engine at scripts/streaming_latency_bench.py's (hop,
+# context) seconds over a 20 s mix; latencies after 2 warm-up hops; the
+# engine's batch-1 trunk shapes, K = (hop + context) x 8,000 / 8 frames
+STREAM_SECONDS = 20.0
+STREAM_PAIRS = ((0.25, 1.75), (0.5, 1.5), (1.0, 3.0))
+STREAM_WARMUP = 2
+STREAM_HOST_ITERS = 20
+STREAM_FRAMES = (2000, 4000)
+# Phase 23: the stateful engine over a 4 s mix at hops of 2, 10, 50 and 500
+# ms, its emissions against the offline forward in fp32: the same operations
+# with the cumulative sums carried across pushes, so float noise only
+STATEFUL_SECONDS = 4.0
+STATEFUL_HOPS = (16, 80, 400, 4000)
+STATEFUL_TOL = 1e-4
+PROFILED_CALLS = 5  # calls a streaming engine makes under the profiler, per measurement
 # NVIDIA H100 SXM: HBM bytes/s, dense bf16 tensor-core and fp32 FLOP/s
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 
@@ -554,10 +610,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     packed = packed_phases(device, kept, bucketed)
     torch.cuda.empty_cache()
+    dm = dynamic_mix_phases(device, kept)
+    torch.cuda.empty_cache()
+    tasnet.update(window_streaming_phases(device, gen, kept))
+    stateful_streaming_phases(device, kept)
     scoring_phases(device, kept)
     kept_dir.cleanup()
     for entry in train:  # rows 3 and 4: their keep-mode launches on the packed path
         entry.update(packed[entry["name"]])
+    # each kernel's launches on the dynamic-mixing path (phase 21)
+    dm_launches = {**dm["launches"]["tasnet"], **dm["launches"]["blstm"]}
+    launches["stft_analysis_dynamic_mix"] = dm_launches["stft_cuda"]
+    for entry in (*train, *tasnet_train):
+        entry["launches_dynamic_mix"] = dm_launches[entry["name"]]
+    tasnet_train[0].update({"dm_batch_host_ms": dm["dm_batch_ms"],
+                            "fixed_batch_host_ms": dm["fixed_batch_ms"],
+                            "dm_step_ms": dm["tasnet_step_ms"]})
 
     d, h4 = 2, 4 * hidden
     lstm_bytes = 4 * (d * BENCH_BATCH * frames * h4 + d * hidden * h4 + BENCH_BATCH * frames * d * hidden)
@@ -569,6 +637,7 @@ def main() -> int:
             "source": "speech_separation_tpu_torch/csrc/stft_analysis.cu",
             "replaces": "speech_separation_tpu/ops/stft_pallas.py:177",
             "launches": launches["stft_analysis"],
+            "launches_dynamic_mix": launches["stft_analysis_dynamic_mix"],
             "max_abs_err": stft_err,
             "ms": stft_ms,
             "plain_ms": stft_plain_ms,
@@ -672,8 +741,10 @@ def tasnet_phases(device, gen, kept) -> dict:
     trunk_err = 0.0
     before = tcn_trunk_cuda.launches
     # the bench's frames and a ragged K; a batch past the items the plan keeps
-    # in flight (several items a group); K below the largest dilation's halo
-    for batch, frames in ((4, 8000), (4, 8003), (7, 3000), (3, 50)):
+    # in flight (several items a group); K below the largest dilation's halo;
+    # the window streaming engine's one window (B = 1, K = 2,000 and 4,000:
+    # 16 and 32 of the 132 SMs, 2,000 not a multiple of the 128-row tile)
+    for batch, frames in ((4, 8000), (4, 8003), (7, 3000), (3, 50), (1, 2000), (1, 4000)):
         h0 = torch.randn(batch, frames, 128, generator=gen, device=device)
         err, bound, peak = check_trunk(h0, stacks, dils)
         trunk_err = max(trunk_err, err)
@@ -2221,12 +2292,463 @@ def packed_phases(device, kept, bucketed) -> dict:
     }
 
 
+@contextlib.contextmanager
+def recording_dynamic_batches(loader_cls):
+    """Record every batch ``loader_cls._dynamic_batch`` assembles while the
+    block runs (the method is rebound and restored after); yields the list."""
+    original, seen = loader_cls._dynamic_batch, []
+
+    def recording(self, *args):
+        batch = original(self, *args)
+        seen.append(batch)
+        return batch
+
+    loader_cls._dynamic_batch = recording
+    try:
+        yield seen
+    finally:
+        loader_cls._dynamic_batch = original
+
+
+def cli_json(argv) -> dict:
+    """Run the port's CLI with ``argv`` and return the last line it prints as JSON."""
+    from speech_separation_tpu_torch import cli
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(argv)
+    return json.loads(printed.getvalue().strip().splitlines()[-1])
+
+
+def losses_of(ckpt: pathlib.Path) -> tuple[list[float], list[float]]:
+    records = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+    return ([r["loss"] for r in records if "loss" in r],
+            [r["val_loss"] for r in records if "val_loss" in r])
+
+
+def dynamic_mix_phases(device, kept) -> dict:
+    """Phase 21: dynamically mixed training through the port's CLI on a
+    LibriMix-shaped corpus; returns each kernel's launches there."""
+    import numpy as np
+    import torch
+
+    from speech_separation_tpu_torch import cli
+    from speech_separation_tpu_torch import train as train_mod
+    from speech_separation_tpu_torch.data.datasets import WaveformLoader
+    from speech_separation_tpu_torch.data.fixture import make_synthetic_librimix
+    from speech_separation_tpu_torch.ops import lstm_train_cuda, tcn_train_cuda
+    from speech_separation_tpu_torch.ops.lstm_train_cuda import lstm_train_backward, lstm_train_forward
+    from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
+    from speech_separation_tpu_torch.ops.tcn_cuda import tcn_trunk_cuda
+    from speech_separation_tpu_torch.ops.tcn_train_cuda import tcn_train_backward, tcn_train_forward
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dm_") as tmp:
+        tmp = pathlib.Path(tmp)
+        root = make_synthetic_librimix(
+            tmp / "librimix", utterances={"train-100": DM_TRAIN, "dev": DM_DEV}, bands=("wav8k",),
+            conditions=("min",), min_seconds=2.0, max_seconds=6.0, profile="hard",
+        ) / "wav8k" / "min"
+        splits = {"dynamic_mix": True, "train_split": "train-100", "val_split": "dev", "seed": 0,
+                  "batch_size": 4, "learning_rate": 1e-3}
+        runs = (
+            # Conv-TasNet with the trunk's training kernels, float batches
+            ("tasnet", 2, {"variant": "tasnet", "tasnet_pallas_trunk": True},
+             (tcn_train_forward, tcn_train_backward, tcn_trunk_cuda),
+             (tcn_train_cuda, ("tcn_train_forward_plain", "tcn_train_backward_plain"))),
+            # the BLSTM in fp32 on the int16 path (an int32 mix lane)
+            ("blstm", 1, {"transfer_int16": True},
+             (stft_cuda, lstm_train_forward, lstm_train_backward),
+             (lstm_train_cuda, ("lstm_train_forward_plain", "lstm_train_backward_plain"))),
+        )
+        for variant, epochs, extra, counters, (plain_mod, plain_names) in runs:
+            cfg, ckpt = tmp / f"cfg_{variant}.json", tmp / f"ckpt_{variant}"
+            cfg.write_text(json.dumps({**splits, **extra}))
+            for counter in counters:
+                counter.launches = 0
+            t0 = time.perf_counter()
+            with (recording_dynamic_batches(WaveformLoader) as seen,
+                  counting_calls(plain_mod, plain_names[0]) as plain_fwd,
+                  counting_calls(plain_mod, plain_names[1]) as plain_bwd):
+                cli.main(["train", "--config", str(cfg), "--data-root", str(root), "--epochs",
+                          str(epochs), "--checkpoint-dir", str(ckpt)])
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = {c.__name__: c.launches for c in counters}
+            launches[variant] = got
+            losses, vals = losses_of(ckpt)
+            steps = epochs * (DM_TRAIN // 4)
+            if not (len(losses) == len(seen) == steps and len(vals) == epochs
+                    and all(map(math.isfinite, losses + vals))):
+                raise AssertionError(f"cli train {variant} dynamic_mix: step losses {losses}, val "
+                                     f"{vals}, {len(seen)} dynamic batches for {steps} steps")
+            needed = [c.__name__ for c in counters if c is not tcn_trunk_cuda]
+            if min(got[n] for n in needed) <= 0 or plain_fwd[0] or plain_bwd[0]:
+                raise AssertionError(f"cli train {variant} dynamic_mix: launches {got}, plain "
+                                     f"passes {plain_fwd[0]} + {plain_bwd[0]}")
+            int16 = bool(extra.get("transfer_int16"))
+            for b in seen:  # mix == Σ sources, exactly, in every batch the trainer saw
+                want = (b.sources.astype(np.int32).sum(axis=1, dtype=np.int32) if int16
+                        else b.sources.sum(axis=1))
+                if b.mix.dtype != want.dtype or not np.array_equal(b.mix, want):
+                    raise AssertionError(f"dynamic batch {b.names}: mix is not the sum of its "
+                                         f"sources ({b.mix.dtype})")
+            phase("dm-train", f"cli train {variant} dynamic_mix (full width, "
+                  f"{'bf16 trunk kernels' if variant == 'tasnet' else 'fp32'}), {epochs} epoch(s) "
+                  f"of train-100 {DM_TRAIN} (batch 4, hard profile, 2 to 6 s) + dev {DM_DEV} in "
+                  f"{seconds:.1f} s: step losses {', '.join(f'{v:.2f}' for v in losses)}; val "
+                  f"{', '.join(f'{v:.2f}' for v in vals)}; launches {got}; no plain pass; "
+                  f"{len(seen)} dynamic batches, each mix == sum of its sources "
+                  f"({'int16 sources, int32 mix' if int16 else 'float32'})")
+
+        out = tmp / "sep"
+        cli.main(["separate", "--checkpoint-dir", str(tmp / "ckpt_tasnet"), "--data-root", str(root),
+                  "--split", "dev", "--out-dir", str(out), "--kernel", "pallas"])
+        line = cli_json(["evaluate", "--data-root", str(root), "--est-dir", str(out), "--split", "dev"])
+        scores = [v for k, v in line.items() if k.endswith("_db")]
+        if line["utterances"] != DM_DEV or not all(map(math.isfinite, scores)):
+            raise AssertionError(f"cli evaluate of the dynamic-mix Conv-TasNet on dev: {line}")
+        phase("dm-train", f"cli separate --kernel pallas and cli evaluate of dev ({DM_DEV} "
+              f"mixtures): {json.dumps(line)} (finite)")
+
+        # host seconds a batch of the loader, dynamic against fixed mixtures
+        timing = make_synthetic_librimix(
+            tmp / "timing", utterances={"train-100": 4 * DM_TIMING_BATCH}, bands=("wav8k",),
+            conditions=("min",), min_seconds=DM_TIMING_SECONDS, max_seconds=DM_TIMING_SECONDS,
+            profile="hard",
+        ) / "wav8k" / "min" / "train-100"
+        loaders = {
+            "fixed": WaveformLoader(timing, batch_size=DM_TIMING_BATCH, shuffle=True, seed=0),
+            "dynamic": WaveformLoader(timing, batch_size=DM_TIMING_BATCH, shuffle=True, seed=0,
+                                      dynamic_mix=True, sort_by_length=True),
+        }
+        host_s = {}
+        for kind in ("fixed", "dynamic", "dynamic", "fixed"):
+            t0 = time.perf_counter()
+            batches = list(loaders[kind])
+            host_s.setdefault(kind, []).append((time.perf_counter() - t0) / len(batches))
+        b = next(iter(loaders["dynamic"]))
+        arrays = tuple(torch.from_numpy(a).to(device) for a in (b.mix, b.sources, b.sample_lengths))
+    net = full_width_tasnet(device)
+    state = train_mod.TrainState.create(net, train_mod.adam(1e-3), seed=0)
+    ts, _ = train_mod.make_time_domain_steps(net, compute_dtype=torch.bfloat16, pallas_trunk=True)
+    step_ms = cuda_ms(lambda: ts(state, *arrays), iters=3)
+    del net, state, ts
+    phase("dm-timing", f"loader host seconds a batch of {DM_TIMING_BATCH} x "
+          f"{DM_TIMING_SECONDS:.0f} s (one epoch of {4 * DM_TIMING_BATCH}, decode included): "
+          + "; ".join(f"{k} {1e3 * min(v):.1f} ms (runs {', '.join(f'{1e3 * x:.1f}' for x in v)})"
+                      for k, v in host_s.items())
+          + f"; the Conv-TasNet kernel-path train step on the dynamic batch {step_ms:.1f} ms")
+    return {"launches": launches, "dm_batch_ms": 1e3 * min(host_s["dynamic"]),
+            "fixed_batch_ms": 1e3 * min(host_s["fixed"]), "tasnet_step_ms": step_ms}
+
+
+def device_busy(fn, calls: int) -> tuple[float, dict]:
+    """``fn()`` ``calls`` times under the profiler: (device operations a call,
+    {"busy_ms": the device's busy ms a call, "idle": its idle share of the
+    host's wall time})."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    device_ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.time_range.elapsed_us() for e in device_ops)
+    return len(device_ops) / calls, {"busy_ms": busy_us / calls / 1e3,
+                                     "idle": max(0.0, 1.0 - busy_us / wall_us)}
+
+
+def stream_hops(apply_fn, mix, hop_seconds: float, context_seconds: float):
+    """``StreamingSeparator`` over ``mix`` a hop at a time: (each hop's
+    emission, the permutation it chose, ms a push by the host's clock, its
+    estimate fetched to the host)."""
+    import numpy as np
+
+    from speech_separation_tpu_torch.separate.streaming import StreamingSeparator
+
+    sep = StreamingSeparator(apply_fn, sample_rate=SAMPLE_RATE, hop_seconds=hop_seconds,
+                             context_seconds=context_seconds)
+    n_hops = -(-len(mix) // sep.hop)
+    padded = np.zeros(n_hops * sep.hop, np.float32)
+    padded[: len(mix)] = mix
+    outs, perms, ms = [], [], []
+    for i in range(n_hops):
+        t0 = time.perf_counter()
+        outs.append(sep.push(padded[i * sep.hop : (i + 1) * sep.hop]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        perms.append(sep._perm)
+    return outs, perms, ms
+
+
+def latency_stats(ms, hop_seconds: float) -> dict:
+    """Median and p90 ms a hop after the warm-up hops, and the real-time factor."""
+    import numpy as np
+
+    steady = np.asarray(ms[STREAM_WARMUP:])
+    median = float(np.median(steady))
+    return {"median_ms": median, "p90_ms": float(np.percentile(steady, 90)),
+            "rtf": 1e3 * hop_seconds / median}
+
+
+def aligned_snr_db(ref_hops, got_hops) -> float:
+    """SNR of one stream against another after each hop's speaker order is
+    aligned: the order that brings ``got`` closest to ``ref``."""
+    import itertools
+
+    import numpy as np
+
+    got_all = []
+    for ref, got in zip(ref_hops, got_hops):
+        perms = itertools.permutations(range(ref.shape[0]))
+        best = min(perms, key=lambda p: float(np.square(ref - got[list(p)]).sum()))
+        got_all.append(got[list(best)])
+    ref, got = np.concatenate(ref_hops, 1).astype(np.float64), np.concatenate(got_all, 1)
+    return float(10 * np.log10(np.square(ref).sum() / max(np.square(ref - got).sum(), 1e-30)))
+
+
+def window_streaming_phases(device, gen, kept) -> dict:
+    """Phase 22: the window engine over the full-width gLN Conv-TasNet, one
+    ``cuda_apply`` (one trunk kernel launch) a hop; returns row 5's
+    streaming entries for the kernels line."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from speech_separation_tpu_torch import train as train_mod
+    from speech_separation_tpu_torch.data.audio_io import read_wav
+    from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.models.tasnet_serving import _params, cuda_apply
+    from speech_separation_tpu_torch.ops.tcn_cuda import stack_tcn_weights, tcn_trunk_cuda, tcn_trunk_plain
+    from speech_separation_tpu_torch.utils import UPitTrainConfig, save_config
+
+    model = full_width_tasnet(device)
+    m16 = copy.deepcopy(model).to(torch.bfloat16)
+    mix = (np.random.default_rng(0).standard_normal(int(STREAM_SECONDS * SAMPLE_RATE))
+           .astype(np.float32) * 0.1)
+
+    def on_device(fn):
+        def apply(m):
+            with torch.inference_mode():
+                return fn(m.to(device))
+        return apply
+
+    paths = {"cuda_apply": on_device(lambda m: cuda_apply(model, m)),
+             "cuda_apply plain trunk": on_device(lambda m: cuda_apply(model, m, plain=True)),
+             "module bf16": on_device(m16)}
+    report, stream_launches = {}, 0
+    for hop_s, ctx_s in STREAM_PAIRS:
+        hops = {}
+        for what, fn in paths.items():
+            before = tcn_trunk_cuda.launches
+            outs, perms, ms = stream_hops(fn, mix, hop_s, ctx_s)
+            launched = tcn_trunk_cuda.launches - before
+            want = len(outs) if what == "cuda_apply" else 0
+            if launched != want or not all(np.isfinite(o).all() for o in outs):
+                raise AssertionError(f"window stream {what} hop {hop_s} s: {launched} trunk "
+                                     f"launches for {len(outs)} hops (want {want}), finite "
+                                     f"{all(np.isfinite(o).all() for o in outs)}")
+            stream_launches += launched
+            hops[what] = (outs, perms)
+            stats = latency_stats(ms, hop_s)
+            report[(hop_s, what)] = stats
+            phase("window-stream", f"hop {hop_s} s / context {ctx_s} s (window [1, "
+                  f"{int((hop_s + ctx_s) * SAMPLE_RATE)}], K = {int((hop_s + ctx_s) * SAMPLE_RATE) // 8}"
+                  f" frames), {what}, {len(outs)} hops of a {STREAM_SECONDS:.0f} s mix: median "
+                  f"{stats['median_ms']:.3f} ms, p90 {stats['p90_ms']:.3f} ms a hop after "
+                  f"{STREAM_WARMUP} warm-up hops = {stats['rtf']:.1f}x real time; trunk kernel "
+                  f"launches {launched}")
+        db = aligned_snr_db(hops["cuda_apply plain trunk"][0], hops["cuda_apply"][0])
+        picks = sum(a != b for a, b in zip(hops["cuda_apply"][1], hops["cuda_apply plain trunk"][1]))
+        if not db >= TRUNK_PATH_DB:
+            raise AssertionError(f"window stream hop {hop_s} s: kernel stream vs plain-trunk "
+                                 f"stream {db:.2f} dB < {TRUNK_PATH_DB}")
+        phase("window-stream", f"hop {hop_s} s: kernel stream against the plain-trunk stream "
+              f"{db:.2f} dB >= {TRUNK_PATH_DB} with each hop's order aligned; permutation picks "
+              f"differing in {picks} of {len(hops['cuda_apply'][1])} hops")
+
+    # the host's time a cuda_apply call on one window, and of it the weights
+    # restacked every call: each call's enqueue on the host's clock, the
+    # device left to run behind (median of back-to-back calls)
+    window = int(sum(STREAM_PAIRS[1]) * SAMPLE_RATE)
+    one = torch.from_numpy(mix[:window][None]).to(device)
+    host = {"cuda_apply": lambda: cuda_apply(model, one),
+            "stack_tcn_weights": lambda: stack_tcn_weights(_params(model), blocks=model.blocks,
+                                                           repeats=model.repeats)}
+    host_ms = {}
+    for what in (*host, *reversed(host)):
+        torch.cuda.synchronize()
+        for _ in range(STREAM_HOST_ITERS):
+            t0 = time.perf_counter()
+            host[what]()
+            host_ms.setdefault(what, []).append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    apply_ms = cuda_ms(host["cuda_apply"], iters=20)
+    ops, busy = device_busy(host["cuda_apply"], PROFILED_CALLS)
+    enqueue = {what: float(np.median(v)) for what, v in host_ms.items()}
+    phase("window-stream", f"cuda_apply [1, {window}]: {apply_ms:.3f} ms a call on the device's "
+          f"clock (CUDA events, 20 calls); under the profiler {ops:.1f} device operations and "
+          f"{busy['busy_ms']:.3f} ms busy a call, idle {100 * busy['idle']:.1f}%; host ms a call "
+          f"(median of {2 * STREAM_HOST_ITERS}): cuda_apply {enqueue['cuda_apply']:.3f}, of it "
+          f"the weight restacking (stack_tcn_weights of the module's parameters, every call) "
+          f"{enqueue['stack_tcn_weights']:.3f}")
+
+    # the kernel alone at the engine's batch-1 shapes
+    st = stack_tcn_weights(dict(model.state_dict()), blocks=model.blocks, repeats=model.repeats)
+    dils = tuple(2**x for _ in range(model.repeats) for x in range(model.blocks))
+    b1 = {}
+    for frames in STREAM_FRAMES:
+        h0 = torch.randn(1, frames, model.bottleneck, generator=gen, device=device).to(torch.bfloat16)
+        runs = {"plain": [], "kernel": []}
+        for kind in ("plain", "kernel", "kernel", "plain"):
+            fn = tcn_trunk_plain if kind == "plain" else tcn_trunk_cuda
+            runs[kind].append(cuda_ms(lambda: fn(h0, *st, dils=dils), iters=10))
+        b_ = trunk_bound(1, frames)
+        b1[frames] = (min(runs["kernel"]), min(runs["plain"]), b_["bound_ms"])
+        phase("window-stream", f"tcn_trunk B=1 K={frames}: kernel {b1[frames][0]:.4f} ms (bound "
+              f"{b_['bound_ms']:.4f} ms by {b_['bound_by']}, {100 * b_['bound_ms'] / b1[frames][0]:.1f}%)"
+              f", plain {b1[frames][1]:.3f} ms (runs kernel "
+              f"{', '.join(f'{v:.4f}' for v in runs['kernel'])}; plain "
+              f"{', '.join(f'{v:.3f}' for v in runs['plain'])})")
+
+    # cli separate --streaming-hop-seconds on phase 10's checkpoint and split
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_window_cli_") as tmp:
+        tmp = pathlib.Path(tmp)
+        root = make_synthetic_fixture(tmp / "fixture", utterances_per_split={"tr": 1, "cv": 1, "tt": 8})
+        state = train_mod.TrainState.create(model, train_mod.adam(), seed=0)
+        train_mod.CheckpointManager(tmp / "ckpt").save_if_best(0, state, 0.0)
+        save_config(UPitTrainConfig(variant="tasnet", seed=0, batch_size=4), tmp / "ckpt" / "train_config.json")
+        out = tmp / "sep"
+        tcn_trunk_cuda.launches = 0
+        line = cli_json(["separate", "--checkpoint-dir", str(tmp / "ckpt"), "--data-root", str(root),
+                         "--out-dir", str(out), "--kernel", "pallas", "--streaming-hop-seconds", "0.5"])
+        cli_launches = tcn_trunk_cuda.launches
+        names = (root / "lists" / "tt_wav.lst").read_text().split()
+        hops = 0
+        for n in names:
+            m_, _ = read_wav(root / "tt" / "mix" / n)
+            hops += -(-len(m_) // 4000)
+            for s in (1, 2):
+                est, _ = read_wav(out / f"{n[:-4]}_s{s}.wav")
+                if len(est) != len(m_) or not np.isfinite(est).all():
+                    raise AssertionError(f"{n} s{s}: {len(est)} samples for a {len(m_)}-sample mix")
+        if not (line["streaming_engine"] == "window" and line["written"] == 2 * len(names)
+                and cli_launches == hops):
+            raise AssertionError(f"cli separate window streaming: {line}, {cli_launches} trunk "
+                                 f"launches for {hops} hops")
+        phase("window-stream", f"cli separate --kernel pallas --streaming-hop-seconds 0.5 tt "
+              f"({len(names)} mixtures): engine window, {line['written']} wavs of their mixtures' "
+              f"lengths, median {line['median_hop_latency_ms']} ms a hop; trunk launches "
+              f"{cli_launches} = one a hop")
+        keep_output(kept, "phase 22 Conv-TasNet cli separate window streaming", root, out)
+    del model, m16, st
+    torch.cuda.empty_cache()
+    entry = {"launches_streaming": stream_launches, "launches_streaming_cli": cli_launches,
+             "stream_apply_host_ms": enqueue["cuda_apply"],
+             "stream_restack_host_ms": enqueue["stack_tcn_weights"]}
+    for frames, (ms, plain_ms, bound_ms) in b1.items():
+        entry.update({f"ms_b1_k{frames}": ms, f"plain_ms_b1_k{frames}": plain_ms,
+                      f"bound_ms_b1_k{frames}": bound_ms})
+    for (hop_s, what), stats in report.items():
+        if what == "cuda_apply":
+            entry[f"stream_hop_{hop_s}_median_ms"] = stats["median_ms"]
+    return entry
+
+
+def stateful_streaming_phases(device, kept) -> None:
+    """Phase 23: the exact stateful engine over the full-width causal
+    Conv-TasNet in fp32, against its offline forward."""
+    import numpy as np
+    import torch
+
+    from speech_separation_tpu_torch import train as train_mod
+    from speech_separation_tpu_torch.data.audio_io import read_wav
+    from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+    from speech_separation_tpu_torch.ops.tcn_cuda import tcn_trunk_cuda
+    from speech_separation_tpu_torch.separate.streaming_stateful import CausalStreamingSeparator
+    from speech_separation_tpu_torch.utils import UPitTrainConfig, save_config
+
+    model = full_width_tasnet(device, causal=True)
+    samples = int(STATEFUL_SECONDS * SAMPLE_RATE)
+    mix = (np.random.default_rng(0).standard_normal((1, samples)).astype(np.float32) * 0.1)
+    with torch.no_grad():
+        offline = model(torch.from_numpy(mix).to(device)).cpu().numpy()
+    peak = float(np.abs(offline).max())
+    bound = STATEFUL_TOL * max(1.0, peak)
+    for hop in STATEFUL_HOPS:
+        sep = CausalStreamingSeparator(model, hop)
+        outs, ms = [], []
+        for i in range(samples // hop):
+            t0 = time.perf_counter()
+            outs.append(sep.push(mix[:, i * hop : (i + 1) * hop]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(sep.flush())
+        est = np.concatenate(outs, axis=2)[:, :, :samples]
+        err = float(np.abs(est - offline).max()) if est.shape == offline.shape else math.inf
+        if not err <= bound:
+            raise AssertionError(f"stateful stream hop {hop}: shape {est.shape} against "
+                                 f"{offline.shape}, max abs err {err} > {bound}")
+        # the device operations of a few steady pushes
+        prof_sep = CausalStreamingSeparator(model, hop)
+        prof_sep.push(mix[:, :hop])
+        offsets = iter(range(hop, (1 + PROFILED_CALLS) * hop, hop))
+
+        def next_push():
+            start = next(offsets)
+            prof_sep.push(mix[:, start : start + hop])
+
+        ops, busy = device_busy(next_push, PROFILED_CALLS)
+        stats = latency_stats(ms, hop / SAMPLE_RATE)
+        phase("stateful-stream", f"hop {hop} samples ({1e3 * hop / SAMPLE_RATE:g} ms), "
+              f"{len(ms)} pushes of a {STATEFUL_SECONDS:.0f} s mix, fp32, ConvTasNet causal "
+              f"full width: max abs err {err:.3e} <= {bound:.3e} (1e-4 x max(1, max |offline| "
+              f"{peak:.3f})) against model(mix); median {stats['median_ms']:.3f} ms, p90 "
+              f"{stats['p90_ms']:.3f} ms a push after {STREAM_WARMUP} warm-up pushes = "
+              f"{stats['rtf']:.2f}x real time; under the profiler {ops:.1f} device operations "
+              f"and {busy['busy_ms']:.3f} ms busy a push, idle {100 * busy['idle']:.1f}% "
+              f"({PROFILED_CALLS} pushes)")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stateful_cli_") as tmp:
+        tmp = pathlib.Path(tmp)
+        root = make_synthetic_fixture(tmp / "fixture", utterances_per_split={"tr": 1, "cv": 1, "tt": 8})
+        state = train_mod.TrainState.create(model, train_mod.adam(), seed=0)
+        train_mod.CheckpointManager(tmp / "ckpt").save_if_best(0, state, 0.0)
+        save_config(UPitTrainConfig(variant="tasnet", seed=0, batch_size=4, tasnet_causal=True),
+                    tmp / "ckpt" / "train_config.json")
+        out = tmp / "sep"
+        tcn_trunk_cuda.launches = 0
+        line = cli_json(["separate", "--checkpoint-dir", str(tmp / "ckpt"), "--data-root", str(root),
+                         "--out-dir", str(out), "--streaming-hop-seconds", "0.05"])
+        names = (root / "lists" / "tt_wav.lst").read_text().split()
+        for n in names:
+            m_, _ = read_wav(root / "tt" / "mix" / n)
+            for s in (1, 2):
+                est, _ = read_wav(out / f"{n[:-4]}_s{s}.wav")
+                if len(est) != len(m_) or not np.isfinite(est).all():
+                    raise AssertionError(f"{n} s{s}: {len(est)} samples for a {len(m_)}-sample mix")
+        if not (line["streaming_engine"] == "stateful_exact" and line["effective_hop_samples"] == 400
+                and line["written"] == 2 * len(names) and tcn_trunk_cuda.launches == 0):
+            raise AssertionError(f"cli separate stateful streaming: {line}, trunk launches "
+                                 f"{tcn_trunk_cuda.launches}")
+        phase("stateful-stream", f"cli separate --streaming-hop-seconds 0.05 tt ({len(names)} "
+              f"mixtures, causal checkpoint): engine stateful_exact, hop 400 samples, "
+              f"{line['written']} wavs of their mixtures' lengths, median "
+              f"{line['median_hop_latency_ms']} ms a push; no trunk kernel on this path")
+        keep_output(kept, "phase 23 causal Conv-TasNet cli separate stateful streaming", root, out)
+    del model
+    torch.cuda.empty_cache()
+
+
 def scoring_phases(device, kept) -> None:
     """Phase 20: ``cli evaluate`` on every kept path's output, then the
     overfit quality run."""
     import torch
 
-    from speech_separation_tpu_torch import cli
     from speech_separation_tpu_torch import train as train_mod
     from speech_separation_tpu_torch.data.datasets import WaveformLoader
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
@@ -2236,10 +2758,7 @@ def scoring_phases(device, kept) -> None:
 
     fields = ("si_sdr", "si_sdri", "sdr", "isr", "sir", "sar")
     for path in sorted(kept.iterdir(), key=lambda p: int(p.name.split()[1])):
-        printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):
-            cli.main(["evaluate", "--data-root", str(path / "data"), "--est-dir", str(path / "est")])
-        line = json.loads(printed.getvalue().strip().splitlines()[-1])
+        line = cli_json(["evaluate", "--data-root", str(path / "data"), "--est-dir", str(path / "est")])
         _, agg = evaluate_directory(path / "data", path / "est")
         same = all(line[f"{k}_db"] == round(agg[k], 4) for k in fields)
         if not (same and line["utterances"] == agg["utterances"] > 0

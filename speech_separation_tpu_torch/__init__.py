@@ -18,15 +18,18 @@ nor ``speech_separation_tpu``. Module paths mirror the JAX package's:
 - ``evaluate`` : scoring a separated split (SI-SDR, SI-SDRi, BSS-eval);
 - ``train``    : Adam and NAdam with optax's semantics, train state, steps,
                  checkpoints and the epoch loop;
-- ``data``     : audio I/O, the waveform and codec loaders, sequence packing
-                 and the device-resident packed corpus, the synthetic
-                 fixture;
+- ``data``     : audio I/O, the waveform and codec loaders (dynamic mixing
+                 too), sequence packing and the device-resident packed
+                 corpus, the synthetic fixture and LibriMix-shaped corpora,
+                 speaker metadata;
 - ``separate`` : wave-to-wave separation of a directory; Conv-TasNet's
-                 overlapped-chunk stitching;
+                 overlapped-chunk stitching, window streaming and the exact
+                 stateful streaming of the causal model;
 - ``utils``    : the training configs and the metrics log;
 - ``tokenizer``: the codebook health metrics of the codec CLI;
-- ``cli``      : ``train`` (``pack`` too) and ``separate`` (uPIT BLSTM and
-                 Conv-TasNet), ``evaluate``, ``train --workload vqvae`` and
+- ``cli``      : ``train`` (``pack`` and ``dynamic_mix`` too) and
+                 ``separate`` (uPIT BLSTM and Conv-TasNet, streaming too),
+                 ``evaluate``, ``train --workload vqvae`` and
                  ``codec-encode``,
                  ``codec-decode``, ``codec-roundtrip`` from the command line;
 - ``weights``  : JAX parameter trees ↔ ``state_dict``s;

@@ -7,7 +7,7 @@
         --data-root D --split tt --out-dir O [--bf16] [--batch-size N] \\
         [--kernel {xla,pallas}] [--pad-quantum-seconds S] \\
         [--chunk-seconds S --chunk-overlap-seconds S] [--transfer-int16] \\
-        [--device {cuda,cpu}]
+        [--streaming-hop-seconds S [--streaming-context-seconds S]] [--device {cuda,cpu}]
     python -m speech_separation_tpu_torch.cli evaluate --data-root D --est-dir O \\
         [--split tt] [--per-utterance scores.jsonl]
     python -m speech_separation_tpu_torch.cli codec-encode --checkpoint-dir C \\
@@ -24,7 +24,9 @@ checkpoints to the checkpoint directory. ``--workload upit``: the uPIT BLSTM
 wave on the negative SI-SDR, with ``tasnet_pallas_trunk`` running the TCN
 trunk's forward and backward in the training CUDA kernels (bf16). With
 ``pack`` the BLSTM trains on sequence-packed rows (``data/packing.py``), its
-recurrences in the training kernels' keep mode.
+recurrences in the training kernels' keep mode; with ``dynamic_mix`` the
+training stream is remixed every epoch (re-paired sources, fresh gains and
+crops; ``data/datasets.py``).
 ``--workload vqvae``: a VQ-VAE codec (``gumbel``, ``v2``, ``t2``, ``t3``,
 ``t3tok``) on the summed squared error plus its auxiliary losses, NAdam for
 the t-series and Adam otherwise. ``separate`` loads the best checkpoint: a
@@ -32,6 +34,10 @@ the t-series and Adam otherwise. ``separate`` loads the best checkpoint: a
 to the time-domain path, whole utterances or overlapped chunks, with
 ``--kernel pallas`` running the TCN trunk in the ``tcn_trunk`` CUDA kernel
 (bf16; the JAX flag's name) and ``--kernel xla`` the module's own forward.
+``--streaming-hop-seconds`` separates each utterance hop by hop instead (it
+wins over ``--chunk-seconds`` and turns ``--transfer-int16`` off): a causal
+checkpoint through the exact stateful engine, a gLN one through sliding
+context windows of the serving path chosen by ``--kernel``.
 ``evaluate`` scores a separated split against its references (SI-SDR,
 SI-SDRi and BSS-eval SDR/ISR/SIR/SAR, host-side numpy) and prints one JSON
 line. The codec commands serve a codec checkpoint: ``codec-encode`` writes the
@@ -282,6 +288,10 @@ def cmd_train(args) -> None:
                 shuffle=shuffle,
                 seed=cfg.seed,
                 transfer_int16=cfg.transfer_int16,
+                # dynamic mixing augments the training stream only; sorting by
+                # length keeps its re-pairing windows of similar lengths
+                dynamic_mix=cfg.dynamic_mix and shuffle,
+                sort_by_length=cfg.dynamic_mix,
             )
             for split, shuffle in ((cfg.train_split, True), (cfg.val_split, False))
         )
@@ -418,9 +428,9 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
         def base(m: torch.Tensor) -> torch.Tensor:
             return net(m)
 
-    # int16 transfer applies to the full-utterance path; chunks are sliced
-    # from float waveforms on the host
-    use_int16 = args.transfer_int16 and not args.chunk_seconds
+    # int16 transfer applies to the full-utterance path; chunks and streamed
+    # hops are sliced from float waveforms on the host
+    use_int16 = args.transfer_int16 and not args.chunk_seconds and not args.streaming_hop_seconds
 
     @torch.inference_mode()
     def separate(m: torch.Tensor):
@@ -444,6 +454,9 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
         audiowrite(wav, out_dir / f"{stem}_s{s + 1}.wav", cfg.stft.sample_rate,
                    normalize=True, threaded=True)
 
+    if args.streaming_hop_seconds:
+        _stream_split(cfg, model, separate, loader, write, args, device)
+        return
     written = 0
     for b in loader:
         if args.chunk_seconds:
@@ -475,6 +488,62 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
                 written += 1
     wait_for_pending_writes()
     print(json.dumps({"written": written, "out_dir": str(out_dir), "device": str(device)}))
+
+
+def _stream_split(cfg, model, separate, loader, write, args, device: torch.device) -> None:
+    """Online mode of ``separate`` (the JAX CLI's streaming branch): each
+    utterance hop by hop. A causal checkpoint streams exactly through carried
+    state (``separate/streaming_stateful.py``, the fp32 module); a gLN one
+    through sliding context windows of ``separate`` (``separate/streaming.py``:
+    under ``--kernel pallas`` one ``cuda_apply`` a hop)."""
+    import numpy as np
+
+    from .data.audio_io import wait_for_pending_writes
+    from .separate.streaming import stream_separate
+    from .separate.streaming_stateful import stateful_stream_separate
+
+    stateful = cfg.tasnet_causal
+    stride = cfg.tasnet_win // 2
+    # the stateful hop: a stride multiple, at least win (the window engine
+    # takes the requested seconds as they are, as the JAX CLI does)
+    hop_samples = max(
+        cfg.tasnet_win,
+        int(round(args.streaming_hop_seconds * cfg.stft.sample_rate)) // stride * stride,
+    )
+    written, all_lat = 0, []
+    for b in loader:
+        for i, name in enumerate(b.names):
+            mix = np.asarray(b.mix[i, : int(b.sample_lengths[i])], np.float32)
+            if stateful:
+                est, lat = stateful_stream_separate(model, mix, hop_samples)
+            else:
+                est, lat = stream_separate(
+                    separate,
+                    mix,
+                    num_speakers=cfg.num_speakers,
+                    sample_rate=cfg.stft.sample_rate,
+                    hop_seconds=args.streaming_hop_seconds,
+                    context_seconds=args.streaming_context_seconds,
+                )
+            all_lat.extend(lat[1:])  # each utterance's first hop is its warm-up
+            for s in range(cfg.num_speakers):
+                write(est[s], pathlib.Path(name).stem, s)
+                written += 1
+    wait_for_pending_writes()
+    print(json.dumps({
+        "written": written,
+        "out_dir": str(args.out_dir),
+        "streaming_hop_s": args.streaming_hop_seconds,
+        "effective_hop_samples": hop_samples,
+        "effective_hop_s": round(hop_samples / cfg.stft.sample_rate, 4),
+        "streaming_engine": "stateful_exact" if stateful else "window",
+        # the stateful engine carries its state and takes no context window
+        "context_seconds": None if stateful else args.streaming_context_seconds,
+        "median_hop_latency_ms": (
+            round(float(np.median(all_lat)) * 1e3, 2) if all_lat else None
+        ),
+        "device": str(device),
+    }))
 
 
 def cmd_evaluate(args) -> None:
@@ -693,6 +762,21 @@ def main(argv=None) -> None:
         type=float,
         default=1.0,
         help="overlap between serving chunks (with --chunk-seconds)",
+    )
+    p.add_argument(
+        "--streaming-hop-seconds",
+        type=float,
+        default=0.0,
+        help="tasnet: online mode, each utterance hop by hop (no lookahead; algorithmic "
+        "delay one hop): a causal checkpoint exactly through carried state, a gLN one "
+        "over sliding context windows; reports the median compute latency a hop",
+    )
+    p.add_argument(
+        "--streaming-context-seconds",
+        type=float,
+        default=1.5,
+        help="trailing context of each streaming window (gLN checkpoints, with "
+        "--streaming-hop-seconds)",
     )
     _add_device(p)
     p.set_defaults(func=cmd_separate)

@@ -11,8 +11,11 @@
 
 Training adds per-epoch shuffling (``default_rng(seed + epoch)``, the JAX
 loader's order, so one seed gives the same batches in both packages),
-``set_epoch`` for resume, ``drop_remainder`` and ``sort_by_length``. Dynamic
-mixing waits for a later slice.
+``set_epoch`` for resume, ``drop_remainder``, ``sort_by_length`` and dynamic
+mixing (``dynamic_mix``: every epoch re-pairs source slots across utterances,
+draws fresh zero-mean gains and random crops, and remixes on the host, from
+the same ``default_rng((seed, 7919, epoch))`` draws as the JAX loader, so the
+batches are bit-identical).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ __all__ = [
     "VaeLoader",
     "load_utterance_batch",
     "load_utterance_batch_i16",
+    "load_source_files",
     "background_iterator",
     "prefetch_to_device",
 ]
@@ -77,6 +81,14 @@ def load_utterance_batch_i16(split_dir, names, num_speakers: int, sample_rate: i
     ]
 
 
+def load_source_files(split_dir, names, slot: int, sample_rate: int):
+    """Decode one source slot (``s{slot+1}/name`` for every name) to float32:
+    the dynamic-mixing path re-pairs slots across utterances, so it loads rows
+    a slot at a time."""
+    split_dir = pathlib.Path(split_dir)
+    return [audioread(split_dir / f"s{slot + 1}" / n, sample_rate) for n in names]
+
+
 @dataclass
 class WaveformLoader:
     """Batches of (mix, s1..sN) waveforms from a wsj0-2mix style split dir,
@@ -84,7 +96,16 @@ class WaveformLoader:
 
     ``shuffle`` draws each epoch's order from ``default_rng(seed + epoch)``;
     ``sort_by_length`` orders utterances by duration (wav headers only) and
-    then shuffles whole batches, keeping similar lengths together."""
+    then shuffles whole batches, keeping similar lengths together.
+
+    ``dynamic_mix`` (the standard wsj0-2mix augmentation): every epoch slot 0
+    keeps its utterance while slots 1..S-1 draw their source from a
+    permutation within windows of ``dynamic_window_batches`` adjacent batches
+    (length-homogeneous under ``sort_by_length``); each row's sources are
+    random-cropped to the row's shortest, gained by fresh zero-mean offsets
+    within ±``dynamic_gain_db`` and summed into the mix on the host. Targets
+    are the gained sources, so ``mix == Σ sources`` holds exactly (on the
+    int16 path as an unclipped int32 mix lane)."""
 
     split_dir: str | pathlib.Path
     batch_size: int = 2
@@ -101,11 +122,17 @@ class WaveformLoader:
     # int16 PCM counts instead of float32 (half the bytes to the device; the
     # steps dequantize bit-exactly for 16-bit sources)
     transfer_int16: bool = False
-    names: list[str] = field(init=False)
+    dynamic_mix: bool = False
+    dynamic_gain_db: float = 2.5
+    # re-pair only within windows of this many adjacent batches of the
+    # (length-sorted) order, bounding what the crops to the shortest discard
+    dynamic_window_batches: int = 4
+    names: list[str] = field(default_factory=list)
 
     def __post_init__(self) -> None:
         self.split_dir = pathlib.Path(self.split_dir)
-        self.names = utterance_names(self.split_dir)
+        if not self.names:
+            self.names = utterance_names(self.split_dir)
         if self.sort_by_length:
             mixdir = resolve_mix_dirname(self.split_dir)
             durations = [
@@ -127,6 +154,8 @@ class WaveformLoader:
         n = len(self.names)
         pos = np.arange(n)
         if not self.shuffle:
+            if self.dynamic_mix:
+                self._epoch += 1  # fresh pairings and gains without shuffling too
             return pos
         rng = np.random.default_rng(self.seed + self._epoch)
         self._epoch += 1
@@ -136,8 +165,25 @@ class WaveformLoader:
             return np.concatenate(groups) if groups else pos
         return rng.permutation(pos)
 
+    def _pairings(self, epoch: int) -> tuple[np.ndarray, np.random.Generator]:
+        """``(slot_idx [S, n], rng)``: each slot's utterance per position of
+        the unshuffled order, slots 1..S-1 permuted within windows, and the
+        epoch's generator, whose later draws are the gains and crops."""
+        n = len(self.names)
+        rng = np.random.default_rng((self.seed, 7919, epoch))
+        w = max(1, self.dynamic_window_batches * self.batch_size)
+        slot_idx = np.tile(np.arange(n), (self.num_speakers, 1))
+        for s in range(1, self.num_speakers):
+            for ws in range(0, n, w):
+                rng.shuffle(slot_idx[s, ws : ws + w])
+        return slot_idx, rng
+
     def __iter__(self) -> Iterator[WaveformBatch]:
+        if self.dynamic_mix:
+            slot_idx, dm_rng = self._pairings(self._epoch)
         order = self._order()
+        if self.dynamic_mix:
+            slot_idx = slot_idx[:, order]
         quantum = self.pad_quantum_samples or max(
             1, int(self.pad_quantum_seconds * self.sample_rate)
         )
@@ -147,6 +193,10 @@ class WaveformLoader:
             if self.drop_remainder and len(idx) < self.batch_size:
                 return
             names = tuple(self.names[i] for i in idx)
+            if self.dynamic_mix:
+                yield self._dynamic_batch(slot_idx[:, start : start + len(idx)], names, quantum,
+                                          dm_rng)
+                continue
             loaded = load(self.split_dir, names, self.num_speakers, self.sample_rate)
             lengths = np.asarray([len(m) for m, _ in loaded], dtype=np.int32)
             padded = _round_up(int(lengths.max()), quantum)
@@ -163,6 +213,53 @@ class WaveformLoader:
                 dtype=np.int32,
             )
             yield WaveformBatch(mix, sources, lengths, frame_lengths, names)
+
+    def _dynamic_batch(self, batch_slots, names, quantum, dm_rng) -> WaveformBatch:
+        """One dynamically mixed batch: each slot's (re-paired) sources
+        decoded, random-cropped to the row's shortest, gained, remixed."""
+        n_src, b = batch_slots.shape
+        decoded = [
+            load_source_files(self.split_dir, [self.names[i] for i in batch_slots[s]], s,
+                              self.sample_rate)
+            for s in range(n_src)
+        ]
+        lengths = np.asarray([min(len(decoded[s][i]) for s in range(n_src)) for i in range(b)],
+                             dtype=np.int32)
+        padded = _round_up(int(lengths.max()), quantum)
+        gains_db = dm_rng.uniform(-self.dynamic_gain_db, self.dynamic_gain_db, (b, n_src))
+        gains_db -= gains_db.mean(axis=1, keepdims=True)
+        gains = 10.0 ** (gains_db / 20.0)
+        sources = np.zeros((b, n_src, padded),
+                           dtype=np.int16 if self.transfer_int16 else np.float32)
+        for i in range(b):
+            ln = int(lengths[i])
+            cuts = []
+            for s in range(n_src):
+                src = decoded[s][i]
+                off = int(dm_rng.integers(0, len(src) - ln + 1))
+                cuts.append(src[off : off + ln] * gains[i, s])
+            # a gain can push a near-full-scale source past ±1, where the int16
+            # path would clip and part from the float path: attenuate the whole
+            # row (every source alike, so mix == Σ sources and the relative
+            # gains hold), on both paths, to 32767/32768 and not 1.0, which
+            # quantizes to 32768 and clips by one count
+            peak = max(float(np.abs(c).max(initial=0.0)) for c in cuts)
+            if peak > 1.0:
+                cuts = [c * (32767.0 / 32768.0 / peak) for c in cuts]
+            for s in range(n_src):
+                sources[i, s, :ln] = quantize_i16(cuts[s]) if self.transfer_int16 else cuts[s]
+        if self.transfer_int16:
+            # the mix ships as the unclipped int32 sum of the quantized sources
+            # (two gained near-full-scale sources can pass ±32767); dequant_i16
+            # scales the int32 lane by the same 1/32768
+            mix = sources.astype(np.int32).sum(axis=1, dtype=np.int32)
+        else:
+            mix = sources.sum(axis=1)
+        frame_lengths = np.asarray(
+            [stft_frame_count(int(x), self.stft_size, self.stft_shift) for x in lengths],
+            dtype=np.int32,
+        )
+        return WaveformBatch(mix, sources, lengths, frame_lengths, names)
 
 
 class VaeBatch(NamedTuple):

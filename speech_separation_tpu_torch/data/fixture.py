@@ -2,20 +2,22 @@
 
 A numpy copy of the JAX package's generator, byte-identical for the same
 seed: the wsj0-2mix directory layout (``{tr,cv,tt}/{mix,s1,s2}/*.wav`` plus
-``lists/*.lst``) with synthetic speech-like sources and ``mix = s1 + s2``, so
-tests and ``chip_smoke.py`` have a split directory without JAX.
-``make_synthetic_librimix`` is not ported yet.
+``lists/*.lst``) with synthetic speech-like sources and ``mix = s1 + s2``, and
+the Libri2Mix-shaped tree of :func:`make_synthetic_librimix`
+(``{band}/{condition}/{split}/{mix_clean,s1..sN}``), so tests and
+``chip_smoke.py`` have corpora without JAX or a download.
 """
 
 from __future__ import annotations
 
 import pathlib
+import zlib
 
 import numpy as np
 
 from .audio_io import audiowrite
 
-__all__ = ["make_synthetic_fixture"]
+__all__ = ["make_synthetic_fixture", "make_synthetic_librimix"]
 
 
 def _voice_like(rng: np.random.Generator, samples: int, f0: float, sr: int) -> np.ndarray:
@@ -190,3 +192,92 @@ def _make_sources(rng, samples, sr, num_speakers, profile):
         offs = np.zeros(num_speakers)
         voices = [_voice_like(rng, samples, f0, sr) for f0 in f0s]
     return [v * 10.0 ** (o / 20.0) for v, o in zip(voices, offs)], offs
+
+
+def make_synthetic_librimix(
+    root: str | pathlib.Path,
+    utterances: dict[str, int] | None = None,
+    bands: tuple[str, ...] = ("wav8k", "wav16k"),
+    conditions: tuple[str, ...] = ("max", "min"),
+    min_seconds: float = 2.0,
+    max_seconds: float = 6.0,
+    seed: int = 0,
+    num_speakers: int = 2,
+    profile: str = "easy",
+) -> pathlib.Path:
+    """Create a Libri2Mix-shaped corpus tree with synthetic audio.
+
+    Layout: ``{root}/{band}/{condition}/{split}/{mix_clean,s1..sN}/*.wav`` —
+    the tree the reference's bulk converters sweep
+    (`parallel_stft_single.py:219-415`). ``utterances`` maps split name →
+    count (default: the LibriMix split names at a scaled-down size). In the
+    ``min`` condition sources are truncated to the shortest (LibriMix
+    semantics); in ``max`` the shorter ones are zero-padded.
+
+    ``profile``: the corpus difficulty regime, labeled on every benchmark.
+      * ``"easy"`` — the round-1/2 corpus: disjoint f0 bands (90–150 vs
+        180–260 Hz), 0 dB mixing. Trivially separable by frequency; dB
+        headlines on it overstate model quality.
+      * ``"hard"`` — wsj0-2mix-like difficulty: every speaker drawn from the
+        SAME overlapping pitch band (50% of mixtures pinned within ±8% f0),
+        per-source gain offsets encoded in the filename (the reference's
+        ``utt1_+g_utt2_-g`` convention, e.g.
+        `use_this/tt/mix/447o0302_0.62948_441c0212_-0.62948.wav`), formant
+        timbres, AM noise floors and silence gaps.
+    """
+    root = pathlib.Path(root)
+    if utterances is None:
+        utterances = {"dev": 8, "test": 8, "train-100": 16, "train-360": 32}
+    rng = np.random.default_rng(seed)
+    easy2 = profile == "easy" and num_speakers == 2
+    subs = ("mix_clean", *(f"s{k + 1}" for k in range(num_speakers)))
+    for split, count in utterances.items():
+        for i in range(count):
+            secs = rng.uniform(min_seconds, max_seconds, size=num_speakers)
+            if easy2:
+                name = f"{split.replace('-', '')}_{i:05d}.wav"
+            base = {}
+            for band in bands:
+                sr = 8000 if band == "wav8k" else 16000
+                if easy2:
+                    srcs = [
+                        _voice_like(
+                            np.random.default_rng(seed + i), int(secs[0] * sr),
+                            90 + (i % 60), sr,
+                        ),
+                        _voice_like(
+                            np.random.default_rng(seed + i + 1), int(secs[1] * sr),
+                            180 + (i % 80), sr,
+                        ),
+                    ]
+                else:
+                    # per-utterance generator so both bands share f0s/offsets
+                    urng = np.random.default_rng(
+                        (seed, zlib.crc32(split.encode()), i)
+                    )
+                    full = int(secs.max() * sr)
+                    srcs, offs = _make_sources(urng, full, sr, num_speakers, profile)
+                    srcs = [s[: int(sc * sr)] for s, sc in zip(srcs, secs)]
+                base[band] = (srcs, sr)
+            if not easy2:
+                name = (
+                    f"{split.replace('-', '')}_{i:05d}_"
+                    + "_".join(f"{o:.5f}" for o in offs)
+                    + ".wav"
+                )
+            for band in bands:
+                srcs, sr = base[band]
+                for condition in conditions:
+                    if condition == "min":
+                        n = min(len(s) for s in srcs)
+                        cut = [s[:n] for s in srcs]
+                    else:
+                        n = max(len(s) for s in srcs)
+                        cut = [np.pad(s, (0, n - len(s))) for s in srcs]
+                    split_dir = root / band / condition / split
+                    for sub in subs:
+                        (split_dir / sub).mkdir(parents=True, exist_ok=True)
+                    for k, s in enumerate(cut):
+                        audiowrite(s, split_dir / f"s{k + 1}" / name, sr)
+                    audiowrite(sum(cut), split_dir / "mix_clean" / name, sr)
+    return root

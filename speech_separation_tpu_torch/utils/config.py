@@ -5,9 +5,11 @@
 one ``cfg.json`` configures either package. ``variant`` is ``"blstm"`` or
 ``"tasnet"``, both served and trained (``tasnet_pallas_trunk`` trains
 Conv-TasNet through the trunk's training kernels; ``pack`` trains the BLSTM
-on sequence-packed rows). Fields whose feature the port does not serve yet
-raise ``ValueError`` when set, rather than being ignored: ``variant="conv"``,
-``dynamic_mix``, and a mesh of more than one device. ``blstm_pallas_scan`` is
+on sequence-packed rows; ``dynamic_mix`` remixes the training stream every
+epoch). Fields whose feature the port does not serve raise ``ValueError`` when
+set, rather than being ignored: ``variant="conv"``, ``dynamic_mix`` together
+with ``pack`` (which the JAX CLI drops silently), and a mesh of more than one
+device. ``blstm_pallas_scan`` is
 accepted and has no effect: on a GPU the port always runs its BiLSTM training
 kernels.
 
@@ -68,7 +70,7 @@ class UPitTrainConfig:
     lr_schedule: str = "default"  # "cosine": warmup+cosine over the whole run
     lr_warmup_steps: int = 500
     sched_epochs: int = 0  # cosine horizon for chunked runs (0 → epochs)
-    dynamic_mix: bool = False  # not served by the port yet
+    dynamic_mix: bool = False  # remix the training stream every epoch (not with pack)
     grad_clip_norm: float = 0.0  # >0: optax-style global-norm clipping
     bf16_compute: bool = False  # mixed-precision train step
     blstm_pallas_scan: bool = False  # no effect: the port always runs its kernels
@@ -94,8 +96,10 @@ class UPitTrainConfig:
         unserved = []
         if self.variant not in ("blstm", "tasnet"):
             unserved.append(f"variant={self.variant!r} (only 'blstm' and 'tasnet')")
-        if self.dynamic_mix:
-            unserved.append("dynamic_mix=true")
+        if self.dynamic_mix and self.pack:
+            # the JAX CLI drops dynamic mixing under pack without a word; the
+            # port says so instead
+            unserved.append("dynamic_mix=true with pack=true (packed rows are fixed mixtures)")
         if self.mesh.model > 1 or self.mesh.data not in (None, 1):
             unserved.append(f"mesh data={self.mesh.data} model={self.mesh.model} (one device)")
         if unserved:

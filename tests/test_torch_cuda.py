@@ -59,6 +59,8 @@ from speech_separation_tpu_torch.ops.tcn_train_cuda import (
 from speech_separation_tpu_torch.ops.tcn_train_cuda import backward_plan as tcn_backward_plan
 from speech_separation_tpu_torch.ops.vq_cuda import nearest_code, nearest_code_plain
 from speech_separation_tpu_torch.separate.pipeline import make_separate_fn
+from speech_separation_tpu_torch.separate.streaming import StreamingSeparator
+from speech_separation_tpu_torch.separate.streaming_stateful import stateful_stream_separate
 
 pytestmark = pytest.mark.cuda
 
@@ -551,6 +553,54 @@ def test_tcn_trunk_kernel_dilation_64_on_short_items(cuda_device, frames):
     but the centre reads the zero padding."""
     dils = (1, 64, 2, 64, 32)
     _check_trunk_kernel(_trunk_inputs(3, frames, 32, 48, dils, cuda_device, seed=22), dils)
+
+
+@pytest.mark.parametrize("frames", [2000, 4000])  # 16 and 32 tiles: one group of 16 or 32 CTAs
+def test_tcn_trunk_kernel_at_the_window_engines_batch_1(cuda_device, frames):
+    """The window streaming engine's one window a hop (B = 1; K = 2,000, not a
+    multiple of the 128-row tile, and 4,000) at full width, the dilation-64
+    halo included."""
+    dils = tuple(2**x for _ in range(3) for x in range(7))
+    plan = trunk_plan(1, frames, 128, 256, 3, dils, **_device_limits(cuda_device))
+    assert (plan.groups, plan.ctas) == (1, -(-frames // 128))
+    _check_trunk_kernel(_trunk_inputs(1, frames, 128, 256, dils, cuda_device, seed=23), dils)
+
+
+def test_window_stream_launches_the_trunk_once_a_hop(cuda_device):
+    """The window engine over ``cuda_apply``: one trunk kernel launch a hop,
+    and each hop within the kernel path's bound of the plain trunk's."""
+    model = ConvTasNet(enc_dim=64, bottleneck=32, hidden=48, blocks=4, repeats=2,
+                       generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    mix = (_normal((6000,), seed=41) * 0.3).numpy()
+    streams = {}
+    for plain in (False, True):
+        sep = StreamingSeparator(lambda m, plain=plain: cuda_apply(model, m.to(cuda_device),
+                                                                   plain=plain),
+                                 hop_seconds=0.125, context_seconds=0.375)
+        before = tcn_trunk_cuda.launches
+        streams[plain] = [sep.push(mix[i : i + 1000]) for i in range(0, 6000, 1000)]
+        assert tcn_trunk_cuda.launches - before == (0 if plain else 6)
+    for got, want in zip(streams[False], streams[True]):
+        snr = 10 * np.log10(np.square(want).sum() / max(np.square(got - want).sum(), 1e-30))
+        assert snr >= SERVE_KERNEL_DB
+
+
+def test_stateful_stream_on_the_card_matches_offline(cuda_device):
+    """The exact stateful engine with its state on the card: the emissions
+    equal the causal module's offline forward there (fp32, TF32 off)."""
+    model = ConvTasNet(enc_dim=32, bottleneck=16, hidden=32, blocks=3, repeats=2, causal=True,
+                       generator=torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    mix = (_normal((1, 4000), seed=42) * 0.1).numpy()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        est, lat = stateful_stream_separate(model, mix[0], 400)
+        with torch.no_grad():
+            want = model(torch.from_numpy(mix).to(cuda_device)).cpu().numpy()[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert est.shape == want.shape and len(lat) == 10
+    np.testing.assert_allclose(est, want, rtol=1e-4, atol=1e-5)
 
 
 def test_tcn_trunk_kernel_raises(cuda_device):

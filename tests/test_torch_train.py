@@ -366,7 +366,7 @@ def test_config_fields_and_defaults_match_jax(tmp_path):
 
 @pytest.mark.parametrize(
     "fields",
-    [{"pack": True, "dynamic_mix": True}, {"dynamic_mix": True}, {"variant": "conv"}, {"mesh": {"data": 4}},
+    [{"pack": True, "dynamic_mix": True}, {"variant": "conv"}, {"mesh": {"data": 4}},
      {"mesh": {"model": 2}}],
 )
 def test_config_rejects_what_the_port_does_not_serve(tmp_path, fields):
