@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops.stft import stft_frame_count
+from ..utils.profiling import span
 from .audio_io import audioread, quantize_i16, read_normalized, wav_duration_samples
 from .features import resolve_mix_dirname, utterance_names
 
@@ -375,7 +376,8 @@ def _to_device(batch, device: torch.device):
             tensor = tensor.pin_memory()
         return tensor.to(device, non_blocking=True)
 
-    return type(batch)(*(put(x) for x in batch))
+    with span("feed.pin"):  # the batch's fields pinned and their copies queued
+        return type(batch)(*(put(x) for x in batch))
 
 
 def prefetch_to_device(iterator, device, depth: int = 2):

@@ -32,6 +32,7 @@ import torch
 
 from ..ops.tcn_cuda import stack_canonical, stack_tcn_weights, tcn_trunk_cuda, tcn_trunk_plain
 from ..ops.tcn_train_cuda import tcn_trunk_train
+from ..utils.profiling import span
 from .tasnet import ConvTasNet, decode, depthwise, encode
 
 __all__ = ["fused_apply", "cuda_apply", "train_apply"]
@@ -156,9 +157,10 @@ def cuda_apply(model: ConvTasNet, mix: torch.Tensor, *, plain: bool = False) -> 
     compared with. Raises on a causal model."""
     _check_mix(model, mix)
     dt = torch.bfloat16
-    p = _params(model)
+    with span("tasnet.weights"):  # restacked every call
+        p = _params(model)
+        stacks = stack_tcn_weights(p, blocks=model.blocks, repeats=model.repeats)
     feats, h = _encode_and_project(p, mix, model.win, dt)
-    stacks = stack_tcn_weights(p, blocks=model.blocks, repeats=model.repeats)
     trunk = tcn_trunk_plain if plain else tcn_trunk_cuda
     skip_sum = trunk(h, *stacks, dils=_dilations(model), taps=model.kernel)
     return _mask_and_decode(p, feats, skip_sum, model.num_speakers, model.enc_dim, model.win,

@@ -22,6 +22,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["StreamingSeparator", "stream_separate"]
 
 
@@ -69,14 +71,16 @@ class StreamingSeparator:
         if hop.shape != (self.hop,):
             raise ValueError(f"push expects exactly {self.hop} samples")
         self._buffer = np.concatenate([self._buffer[self.hop :], hop])
-        out = self.apply_fn(torch.from_numpy(self._buffer[None]))
-        est = out.detach().float().cpu().numpy()[0]
+        with span("stream.apply"):  # every launch of the hop, no wait
+            out = self.apply_fn(torch.from_numpy(self._buffer[None]))
+        with span("stream.fetch"):  # the host blocked on the hop's device work and its copy
+            est = out.detach().float().cpu().numpy()[0]
 
         # permutation alignment over the causal context region
-        span = min(self.context, self._history.shape[1])
-        if span > 0:
-            ref = self._history[:, self._history.shape[1] - span :]
-            cand = est[:, self.context - span : self.context]
+        lookback = min(self.context, self._history.shape[1])
+        if lookback > 0:
+            ref = self._history[:, self._history.shape[1] - lookback :]
+            cand = est[:, self.context - lookback : self.context]
             best, best_score = self._perm, -np.inf
             for p in self._perms:
                 score = sum(

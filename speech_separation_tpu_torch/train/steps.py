@@ -27,6 +27,7 @@ from ..losses.pit import pit_loss, pit_loss_packed, pit_si_sdr_loss
 from ..losses.sisdr import summed_squared_error
 from ..ops.features import psm_features
 from ..ops.quant import dequant_i16
+from ..utils.profiling import span
 from .state import TrainState
 
 __all__ = [
@@ -91,8 +92,10 @@ def _steps(loss_fn, arrays: Callable) -> tuple[Callable, Callable]:
 
     def train_step(state: TrainState, *args):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(*arrays(*args), state.generator)
-        loss.backward()
+        with span("train.forward"):
+            loss = loss_fn(*arrays(*args), state.generator)
+        with span("train.backward"):
+            loss.backward()
         return state.apply_gradients(), loss.detach()
 
     @torch.no_grad()
@@ -199,8 +202,10 @@ def make_time_domain_steps(
 
     def train_step(state: TrainState, mix, sources, sample_lengths):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = _loss(mix, sources, sample_lengths)
-        loss.backward()
+        with span("train.forward"):
+            loss = _loss(mix, sources, sample_lengths)
+        with span("train.backward"):
+            loss.backward()
         return state.apply_gradients(), loss.detach()
 
     @torch.no_grad()
@@ -238,8 +243,10 @@ def make_vae_steps(
     def train_step(state: TrainState, inputs, targets):
         state.optimizer.zero_grad(set_to_none=True)
         extra = schedule(state.step) if schedule is not None else None
-        loss, recon, _ = _loss(inputs, targets, state.generator, False, extra)
-        loss.backward()
+        with span("train.forward"):
+            loss, recon, _ = _loss(inputs, targets, state.generator, False, extra)
+        with span("train.backward"):
+            loss.backward()
         return state.apply_gradients(), loss.detach(), recon.detach()
 
     @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Configuration and run logging (counterpart of ``utils/``)."""
+"""Configuration, run logging and profiler spans (counterpart of ``utils/``)."""
 
 from .config import (
     MeshConfig,
@@ -8,7 +8,7 @@ from .config import (
     load_config,
     save_config,
 )
-from .profiling import MetricsLogger
+from .profiling import MetricsLogger, span
 
 __all__ = [
     "MeshConfig",
@@ -18,4 +18,5 @@ __all__ = [
     "VaeTrainConfig",
     "load_config",
     "save_config",
+    "span",
 ]

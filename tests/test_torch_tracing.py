@@ -1,0 +1,186 @@
+"""The port's profiler spans (``utils/profiling.py::span``) on the CPU: each
+span recorded once where its work happens, nested and ordered as the trace
+readers assume, host side only (no user annotation, so no GPU mirror on
+CUDA), nothing built with the profiler off, and the outputs unchanged."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from speech_separation_tpu_torch import train
+from speech_separation_tpu_torch.data.datasets import prefetch_to_device
+from speech_separation_tpu_torch.models.tasnet import ConvTasNet
+from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply
+from speech_separation_tpu_torch.models.upit import UPitBlstm
+from speech_separation_tpu_torch.models.vqvae import VqVaeCodebook
+from speech_separation_tpu_torch.separate.streaming import StreamingSeparator
+from speech_separation_tpu_torch.utils import span
+
+TINY_TASNET = dict(num_speakers=2, enc_dim=32, win=16, bottleneck=16, hidden=32, kernel=3,
+                   blocks=3, repeats=2)
+HOP, CONTEXT, SR = 400, 800, 8000  # a window of 1,200 samples, a multiple of win // 2
+PUSHES = 3
+STEPS = 2
+ADAM = "Optimizer.step#Adam.step"  # torch's own span around the optimizer's update
+
+
+def _events(prof) -> list:
+    """The capture's raw host events (as the benchmark's trace reader takes them)."""
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CPU]
+
+
+def _spans(prof, name: str) -> list[tuple[int, int]]:
+    return sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in _events(prof)
+                  if e.name() == name)
+
+
+def _inside(inner, outer) -> bool:
+    return outer[0] <= inner[0] and inner[1] <= outer[1]
+
+
+def _overlap(a, b) -> bool:
+    return a[0] < b[1] and b[0] < a[1]
+
+
+class _Counting:
+    """A stand-in for the profiler's span primitive that counts its builds."""
+
+    built: list[str] = []
+
+    def __init__(self, name: str):
+        type(self).built.append(name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_span_builds_nothing_with_the_profiler_off(monkeypatch):
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _Counting)
+    monkeypatch.setattr(_Counting, "built", [])
+    assert not torch.autograd._profiler_enabled()
+    with span("stream.apply"), span("train.forward"):
+        pass
+    assert span("a") is span("b")  # one shared no-op context
+    assert _Counting.built == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("stream.apply"):
+            pass
+    assert _Counting.built == ["sst.stream.apply"]  # the stand-in is the one span uses
+
+
+def _tasnet() -> ConvTasNet:
+    return ConvTasNet(**TINY_TASNET, generator=torch.Generator().manual_seed(0)).eval()
+
+
+def _stream(model: ConvTasNet, hops: np.ndarray) -> list[np.ndarray]:
+    sep = StreamingSeparator(lambda window: cuda_apply(model, window, plain=True), sample_rate=SR,
+                             hop_seconds=HOP / SR, context_seconds=CONTEXT / SR)
+    return [sep.push(h) for h in hops]
+
+
+@pytest.fixture(scope="module")
+def streamed():
+    """Three pushes of the window engine through ``cuda_apply``'s plain trunk,
+    profiled, and the same pushes unprofiled."""
+    model = _tasnet()
+    hops = np.random.default_rng(1).standard_normal((PUSHES, HOP)).astype(np.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        outs = _stream(model, hops)
+    return prof, outs, _stream(model, hops)
+
+
+def test_stream_spans_once_a_push_nested_and_apart(streamed):
+    prof = streamed[0]
+    apply, fetch = _spans(prof, "sst.stream.apply"), _spans(prof, "sst.stream.fetch")
+    weights = _spans(prof, "sst.tasnet.weights")
+    assert len(apply) == len(fetch) == len(weights) == PUSHES
+    for a, f, w in zip(apply, fetch, weights):
+        assert _inside(w, a)  # the restacking is part of the enqueue
+        assert a[1] <= f[0]  # the fetch follows its own hop's launches
+    assert not any(_overlap(a, f) for a in apply for f in fetch)
+
+
+def test_stream_outputs_unchanged_by_the_profiler(streamed):
+    _, traced, plain = streamed
+    for a, b in zip(traced, plain):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_spans_are_host_events_not_user_annotations(streamed):
+    ours = [e for e in _events(streamed[0]) if e.name().startswith("sst.")]
+    assert {e.name() for e in ours} == {"sst.stream.apply", "sst.stream.fetch", "sst.tasnet.weights"}
+    assert not any(e.is_user_annotation() for e in ours)
+
+
+class _Batch(NamedTuple):
+    mix: np.ndarray
+    lengths: np.ndarray
+    name: str
+
+
+def test_feed_pins_once_a_batch():
+    batches = [_Batch(np.full((2, 64), i, np.float32), np.array([64, 40], np.int32), f"b{i}")
+               for i in range(4)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = list(prefetch_to_device(iter(batches), "cpu"))
+    assert [b.name for b in got] == ["b0", "b1", "b2", "b3"]
+    assert len(_spans(prof, "sst.feed.pin")) == 4
+
+
+def _upit_step():
+    model = UPitBlstm(hidden=8, num_layers=1, generator=torch.Generator().manual_seed(0))
+    step, _ = train.make_upit_waveform_steps(model, plain=True)
+    rng = np.random.default_rng(2)
+    samples = 1024
+    mix = torch.from_numpy(rng.integers(-3000, 3000, (2, samples)).astype(np.int16))
+    sources = torch.from_numpy(rng.integers(-3000, 3000, (2, 2, samples)).astype(np.int16))
+    frames = torch.tensor([9, 6], dtype=torch.int32)
+    return model, train.adam(1e-3), step, (mix, sources, frames), 0
+
+
+def _tasnet_step():
+    model = ConvTasNet(**TINY_TASNET, generator=torch.Generator().manual_seed(0))
+    step, _ = train.make_time_domain_steps(model)
+    rng = np.random.default_rng(3)
+    samples = 512
+    mix = torch.from_numpy(rng.standard_normal((2, samples)).astype(np.float32))
+    sources = torch.from_numpy(rng.standard_normal((2, 2, samples)).astype(np.float32))
+    return model, train.adam(1e-3), step, (mix, sources, torch.tensor([512, 400])), 0
+
+
+def _vae_step():
+    model = VqVaeCodebook(embedding_dim=8, num_embeddings=16,
+                          generator=torch.Generator().manual_seed(0))
+    step, _ = train.make_vae_steps(model, plain=True)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 16, 40)).astype(np.float32))
+    return model, train.nadam(1e-3), step, (x, x.clone()), 0
+
+
+@pytest.mark.parametrize("factory", [_upit_step, _tasnet_step, _vae_step],
+                         ids=["upit_waveform", "time_domain", "vae"])
+def test_train_step_spans_forward_then_backward(factory):
+    model, tx, step, args, seed = factory()
+    model.train()
+    state = train.TrainState.create(model, tx, seed)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(STEPS):
+            out = step(state, *args)
+            state = out[0]
+    forward, backward = _spans(prof, "sst.train.forward"), _spans(prof, "sst.train.backward")
+    adam = _spans(prof, ADAM)
+    assert len(forward) == len(backward) == len(adam) == STEPS
+    order = sorted([(s, "forward") for s, _ in forward] + [(s, "backward") for s, _ in backward])
+    assert [kind for _, kind in order] == ["forward", "backward"] * STEPS
+    for f, b in zip(forward, backward):
+        assert f[1] <= b[0]
+    # the optimizer's update keeps torch's own span, outside the port's
+    assert not any(_overlap(a, s) for a in adam for s in forward + backward)
