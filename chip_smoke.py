@@ -159,7 +159,7 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    warm-up hops and the real-time factor; the kernel stream against the
    plain-trunk stream with each hop's speaker order aligned, and the hops
    whose permutation picks differ; ``cuda_apply``'s time on the device at one
-   window beside the host's weight restacking it does every call; the trunk
+   window beside the host's weight restacking that its cache saves; the trunk
    kernel alone at B=1 × K=2000 and 4000 against its plain version and bound;
    ``cli separate --kernel pallas --streaming-hop-seconds 0.5`` on phase 10's
    checkpoint and ``tt`` split (one launch a hop);
@@ -2572,8 +2572,8 @@ def window_streaming_phases(device, gen, kept) -> dict:
               f"{db:.2f} dB >= {TRUNK_PATH_DB} with each hop's order aligned; permutation picks "
               f"differing in {picks} of {len(hops['cuda_apply'][1])} hops")
 
-    # the host's time a cuda_apply call on one window, and of it the weights
-    # restacked every call: each call's enqueue on the host's clock, the
+    # the host's time a cuda_apply call on one window (its weights cached), and
+    # the restacking a cache miss adds: each call's enqueue on the host's clock, the
     # device left to run behind (median of back-to-back calls)
     window = int(sum(STREAM_PAIRS[1]) * SAMPLE_RATE)
     one = torch.from_numpy(mix[:window][None]).to(device)
@@ -2594,8 +2594,8 @@ def window_streaming_phases(device, gen, kept) -> dict:
     phase("window-stream", f"cuda_apply [1, {window}]: {apply_ms:.3f} ms a call on the device's "
           f"clock (CUDA events, 20 calls); under the profiler {ops:.1f} device operations and "
           f"{busy['busy_ms']:.3f} ms busy a call, idle {100 * busy['idle']:.1f}%; host ms a call "
-          f"(median of {2 * STREAM_HOST_ITERS}): cuda_apply {enqueue['cuda_apply']:.3f}, of it "
-          f"the weight restacking (stack_tcn_weights of the module's parameters, every call) "
+          f"(median of {2 * STREAM_HOST_ITERS}): cuda_apply {enqueue['cuda_apply']:.3f}; the "
+          f"weight restacking a cache miss adds (stack_tcn_weights of the module's parameters) "
           f"{enqueue['stack_tcn_weights']:.3f}")
 
     # the kernel alone at the engine's batch-1 shapes

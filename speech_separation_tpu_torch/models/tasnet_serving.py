@@ -17,7 +17,10 @@ the serving path with the whole TCN trunk in the ``tcn_trunk`` CUDA kernel
 (``ops/tcn_cuda.py``), bf16 only; the encoder, input projection, mask head and
 decoder stay PyTorch (cuDNN and cuBLAS), as the JAX package leaves them to XLA
 around its Pallas trunk. Both take the fp32 module and read its parameters;
-both serve the gLN topology only.
+both serve the gLN topology only. ``cuda_apply`` keeps what it derives from
+the parameters alone (the trunk's stacks, the bf16 weights around it) in a
+cache keyed by the module, rebuilt when a parameter changes
+(:func:`_serving`); ``fused_apply`` derives them every call.
 
 :func:`train_apply` is the differentiable counterpart of ``cuda_apply`` that
 ``make_time_domain_steps(pallas_trunk=True)`` trains through (the JAX kernel
@@ -27,6 +30,9 @@ every parameter in fp32.
 """
 
 from __future__ import annotations
+
+import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -54,14 +60,41 @@ def _prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, alpha.to(x.dtype) * x)
 
 
-def _folded_dot(x, sab, w, gamma, bias, dt):
+def _folded_dot(x, sab, wg, w, bias, dt):
     """``gLN_affine(x) @ w + bias`` with the normalisation folded into the
-    product: ``x [B, T, C]`` in ``dt``, ``w [C, O]`` fp32, ``gamma`` the gLN's
-    scale. Returns ``[B, T, O]`` in ``dt``."""
+    product: ``x [B, T, C]`` in ``dt``, ``w [C, O]`` fp32 and ``wg`` its
+    gamma-folded cast (:func:`_fold`). Returns ``[B, T, O]`` in ``dt``."""
     s, _, b = sab
-    out = x @ (gamma[:, None] * w).to(dt)
+    out = x @ wg
     bias2 = b @ w + bias[None, :]  # [B, O] fp32
     return (out.float() * s[:, None, None] + bias2[:, None, :]).to(dt)
+
+
+def _fold(gamma: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
+    """The gLN's scale folded into the following 1×1 kernel ``w [C, O]``, in ``dt``."""
+    return (gamma[:, None] * w).to(dt)
+
+
+class _Head(NamedTuple):
+    """The operands around the trunk in the compute dtype (the input
+    projection's fp32 kernel besides, for the folded bias)."""
+
+    enc_k: torch.Tensor
+    enc_b: torch.Tensor
+    proj_wg: torch.Tensor
+    proj_w: torch.Tensor
+    mask_k: torch.Tensor
+    mask_b: torch.Tensor
+    dec_k: torch.Tensor
+    dec_b: torch.Tensor
+
+
+def _head(p, dt) -> _Head:
+    proj_w = p["input_proj.kernel"][0]
+    return _Head(p["encoder.kernel"].to(dt), p["encoder.bias"].to(dt),
+                 _fold(p["input_norm.gamma"], proj_w, dt), proj_w,
+                 p["mask_proj.kernel"][0].to(dt), p["mask_proj.bias"].to(dt),
+                 p["decoder.kernel"].to(dt), p["decoder.bias"].to(dt))
 
 
 def _params(model: ConvTasNet, live: bool = False) -> dict[str, torch.Tensor]:
@@ -71,24 +104,23 @@ def _params(model: ConvTasNet, live: bool = False) -> dict[str, torch.Tensor]:
     return {name: p.float() if live else p.detach().float() for name, p in model.named_parameters()}
 
 
-def _encode_and_project(p, mix, win, dt):
+def _encode_and_project(p, head: _Head, mix, win, dt):
     """Encoder filterbank, and the input gLN folded into the 1×1 bottleneck
     projection: ``(feats [B, K, N], h [B, K, bottleneck])`` in ``dt``."""
-    feats = encode(mix, p["encoder.kernel"].to(dt), p["encoder.bias"].to(dt), win)
+    feats = encode(mix, head.enc_k, head.enc_b, win)
     sab = _gln_affine(feats, p["input_norm.gamma"], p["input_norm.beta"])
-    h = _folded_dot(feats, sab, p["input_proj.kernel"][0], p["input_norm.gamma"],
-                    p["input_proj.bias"], dt)
+    h = _folded_dot(feats, sab, head.proj_wg, head.proj_w, p["input_proj.bias"], dt)
     return feats, h
 
 
-def _mask_and_decode(p, feats, skip_sum, num_speakers, enc_dim, win, samples, dt):
+def _mask_and_decode(p, head: _Head, feats, skip_sum, num_speakers, enc_dim, win, samples, dt):
     """PReLU → mask projection → mask × feats → the shared transposed decoder."""
     b, k = feats.shape[:2]
     mpre = _prelu(skip_sum.to(dt), p["mask_prelu.alpha"])
-    masks = torch.sigmoid(mpre @ p["mask_proj.kernel"][0].to(dt) + p["mask_proj.bias"].to(dt))
+    masks = torch.sigmoid(mpre @ head.mask_k + head.mask_b)
     masked = masks.view(b, k, num_speakers, enc_dim) * feats[:, :, None, :]
     masked = masked.transpose(1, 2).reshape(b * num_speakers, k, enc_dim)
-    wav = decode(masked, p["decoder.kernel"].to(dt), p["decoder.bias"].to(dt), win)
+    wav = decode(masked, head.dec_k, head.dec_b, win)
     return wav.reshape(b, num_speakers, -1).float()[:, :, :samples]
 
 
@@ -113,7 +145,8 @@ def fused_apply(model: ConvTasNet, mix: torch.Tensor, *, dtype: torch.dtype | No
     _check_mix(model, mix)
     dt = dtype or torch.float32
     p = _params(model)
-    feats, h = _encode_and_project(p, mix, model.win, dt)
+    head = _head(p, dt)
+    feats, h = _encode_and_project(p, head, mix, model.win, dt)
     k = feats.shape[1]
     t_idx = torch.arange(k, device=mix.device)[:, None]
     skip_sum = torch.zeros_like(h)
@@ -141,11 +174,11 @@ def fused_apply(model: ConvTasNet, mix: torch.Tensor, *, dtype: torch.dtype | No
             sab = _gln_affine(t2, p[pre + "norm2.gamma"], p[pre + "norm2.beta"])
             w_cat = torch.cat([p[pre + "res_out.kernel"][0], p[pre + "skip_out.kernel"][0]], dim=1)
             bias_cat = torch.cat([p[pre + "res_out.bias"], p[pre + "skip_out.bias"]])
-            rs = _folded_dot(t2, sab, w_cat, p[pre + "norm2.gamma"], bias_cat, dt)
+            rs = _folded_dot(t2, sab, _fold(p[pre + "norm2.gamma"], w_cat, dt), w_cat, bias_cat, dt)
             h = h + rs[..., : model.bottleneck]
             skip_sum = skip_sum + rs[..., model.bottleneck :]
-    return _mask_and_decode(p, feats, skip_sum, model.num_speakers, model.enc_dim, model.win,
-                            mix.shape[1], dt)
+    return _mask_and_decode(p, head, feats, skip_sum, model.num_speakers, model.enc_dim,
+                            model.win, mix.shape[1], dt)
 
 
 @torch.no_grad()
@@ -154,17 +187,82 @@ def cuda_apply(model: ConvTasNet, mix: torch.Tensor, *, plain: bool = False) -> 
     (bf16, the kernel's precision contract): ``mix [B, samples]`` (a multiple
     of ``win // 2``) → fp32 ``[B, S, samples]``. ``plain=True`` runs the
     trunk's plain version instead, on any device: the reference a GPU run is
-    compared with. Raises on a causal model."""
+    compared with. The weights come from :func:`_serving`'s cache. Raises on
+    a causal model."""
     _check_mix(model, mix)
     dt = torch.bfloat16
-    with span("tasnet.weights"):  # restacked every call
-        p = _params(model)
-        stacks = stack_tcn_weights(p, blocks=model.blocks, repeats=model.repeats)
-    feats, h = _encode_and_project(p, mix, model.win, dt)
+    with span("tasnet.weights"):
+        w = _serving(model)
+    feats, h = _encode_and_project(w.p, w.head, mix, model.win, dt)
     trunk = tcn_trunk_plain if plain else tcn_trunk_cuda
-    skip_sum = trunk(h, *stacks, dils=_dilations(model), taps=model.kernel)
-    return _mask_and_decode(p, feats, skip_sum, model.num_speakers, model.enc_dim, model.win,
-                            mix.shape[1], dt)
+    skip_sum = trunk(h, *w.stacks, dils=w.dils, taps=model.kernel)
+    return _mask_and_decode(w.p, w.head, feats, skip_sum, model.num_speakers, model.enc_dim,
+                            model.win, mix.shape[1], dt)
+
+
+class _Serving(NamedTuple):
+    """What :func:`cuda_apply` derives from the module's parameters alone."""
+
+    p: dict[str, torch.Tensor]  # fp32, detached
+    stacks: tuple  # the trunk kernel's (we, wdw, wg, vecs)
+    head: _Head  # bf16
+    dils: tuple[int, ...]
+
+
+# module -> (validity key, operands, the parameters as the key saw them); an
+# entry dies with its module, which carries nothing of it
+_SERVING: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _build_serving(model: ConvTasNet) -> _Serving:
+    p = _params(model)
+    stacks = stack_tcn_weights(p, blocks=model.blocks, repeats=model.repeats)
+    return _Serving(p, stacks, _head(p, torch.bfloat16), _dilations(model))
+
+
+def _leaves(module: torch.nn.Module, out: list) -> list:
+    """Every parameter of ``module``, in ``parameters()``'s order, read from
+    the modules' own tables: a fifth of ``parameters()``'s host time, which
+    builds names and drops duplicates that a key has no use for."""
+    for q in module._parameters.values():
+        if q is not None:
+            out.append(q)
+    for child in module._modules.values():
+        if child is not None:
+            _leaves(child, out)
+    return out
+
+
+def _serving(model: ConvTasNet) -> _Serving:
+    """``cuda_apply``'s operands for ``model``: the cached ones while every
+    parameter is as it was when they were built, else built anew and cached.
+
+    The key is each parameter's ``(data_ptr(), _version)``. It sees an
+    in-place update (an optimizer's ``add_`` under ``no_grad``,
+    ``load_state_dict``'s ``copy_``) through the version counter, and new
+    storage (``module.to(...)`` to another device or dtype, ``param.data =
+    ...``, a new ``Parameter``) through the address: the entry holds the
+    parameters' old storage, so no other tensor can take its address while
+    the entry stands, and a device or dtype changes only with the storage
+    (reading them too would add half again to a hit's host time). A write
+    through ``p.data`` bypasses the version counter, as it does for autograd,
+    and is not seen. Parameters made under ``torch.inference_mode()`` keep no
+    version counter, so their operands are built every call. A caller that
+    changes the weights between calls misses every time: the build it would
+    have paid anyway, plus the key. A hit is marked by a span
+    ``sst.tasnet.weights.hit``, recorded once the key has matched."""
+    params = _leaves(model, [])
+    try:
+        key = tuple([(q.data_ptr(), q._version) for q in params])
+    except RuntimeError:  # inference tensors: no version counter to validate an entry by
+        return _build_serving(model)
+    entry = _SERVING.get(model)
+    if entry is not None and entry[0] == key:
+        with span("tasnet.weights.hit"):
+            return entry[1]
+    served = _build_serving(model)
+    _SERVING[model] = (key, served, [q.detach() for q in params])
+    return served
 
 
 def _dilations(model: ConvTasNet) -> tuple[int, ...]:
@@ -180,8 +278,9 @@ def train_apply(model: ConvTasNet, mix: torch.Tensor, *, plain: bool = False) ->
     _check_mix(model, mix)
     dt = torch.bfloat16
     p = _params(model, live=True)
-    feats, h = _encode_and_project(p, mix, model.win, dt)
+    head = _head(p, dt)
+    feats, h = _encode_and_project(p, head, mix, model.win, dt)
     arrays = stack_canonical(p, blocks=model.blocks, repeats=model.repeats)
     skip_sum = tcn_trunk_train(h, *arrays, dils=_dilations(model), taps=model.kernel, plain=plain)
-    return _mask_and_decode(p, feats, skip_sum, model.num_speakers, model.enc_dim, model.win,
-                            mix.shape[1], dt)
+    return _mask_and_decode(p, head, feats, skip_sum, model.num_speakers, model.enc_dim,
+                            model.win, mix.shape[1], dt)

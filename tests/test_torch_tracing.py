@@ -104,9 +104,13 @@ def test_stream_spans_once_a_push_nested_and_apart(streamed):
     weights = _spans(prof, "sst.tasnet.weights")
     assert len(apply) == len(fetch) == len(weights) == PUSHES
     for a, f, w in zip(apply, fetch, weights):
-        assert _inside(w, a)  # the restacking is part of the enqueue
+        assert _inside(w, a)  # the weights' lookup is part of the enqueue
         assert a[1] <= f[0]  # the fetch follows its own hop's launches
     assert not any(_overlap(a, f) for a in apply for f in fetch)
+    # the first push builds the model's serving weights, every later one hits
+    hits = _spans(prof, "sst.tasnet.weights.hit")
+    assert len(hits) == PUSHES - 1
+    assert all(_inside(h, w) for h, w in zip(hits, weights[1:]))
 
 
 def test_stream_outputs_unchanged_by_the_profiler(streamed):
@@ -117,7 +121,8 @@ def test_stream_outputs_unchanged_by_the_profiler(streamed):
 
 def test_spans_are_host_events_not_user_annotations(streamed):
     ours = [e for e in _events(streamed[0]) if e.name().startswith("sst.")]
-    assert {e.name() for e in ours} == {"sst.stream.apply", "sst.stream.fetch", "sst.tasnet.weights"}
+    assert {e.name() for e in ours} == {"sst.stream.apply", "sst.stream.fetch",
+                                        "sst.tasnet.weights", "sst.tasnet.weights.hit"}
     assert not any(e.is_user_annotation() for e in ours)
 
 
