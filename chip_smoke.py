@@ -168,7 +168,17 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    ``model(mix)`` offline within 1e-4 × max(1, max |offline|), median and p90
    ms a push, the real-time factor and the device operations a push (under
    the profiler); ``cli separate --streaming-hop-seconds 0.05`` on a causal
-   checkpoint (engine ``stateful_exact``, no trunk kernel).
+   checkpoint (engine ``stateful_exact``, no trunk kernel);
+24. DPRNN-TasNet — the LSTM recurrence at H = 128 over the dual-path rows of
+   one 16 × 10 s batch (K = 250, S = 641): 10,256 intra rows of 250 steps
+   and 4,000 inter rows of 641 steps, in fp32 and bf16, each against its
+   plain loop, rerun bit-identical, one launch a row slice of 256 (41 and
+   16), timed beside its bound; then ``models.dprnn.serving_fn`` (what ``cli
+   separate`` serves a ``dprnn`` checkpoint through) at the published widths
+   (2,583,426 parameters, ``bench_torch/reference/dprnn.py::make_weights``)
+   on that batch: fp32 against the plain reference within the
+   ``dprnn_separate`` cell's ``est_rel_err`` limit, 6 × (41 + 16) = 342
+   recurrence launches a call, bf16 against it in dB, and ms a batch.
 
 Phase 15 also holds the search's NaN picks: a NaN score orders below every
 number, so a row holding one gets its first NaN's index, as ``torch.argmin``
@@ -184,11 +194,11 @@ against 4 (N D + D K + N) bytes); and the time of one PyTorch call computing
 the same function where there is one (``torch.stft``, cuDNN ``nn.LSTM``),
 used nowhere in the port.
 
-Phases run in the order 1 to 19, 21 to 23, then 20. The kernels line gives
+Phases run in the order 1 to 19, 21 to 24, then 20. The kernels line gives
 each kernel's launches on the dynamic-mixing path of phase 21
 (``launches_dynamic_mix``) and the trunk kernel's on the window streaming
 path of phase 22 (``launches_streaming``, ``launches_streaming_cli``) with its
-times at B = 1.
+times at B = 1; the LSTM recurrence's entry carries phase 24's (``dprnn``).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -308,6 +318,12 @@ STATEFUL_SECONDS = 4.0
 STATEFUL_HOPS = (16, 80, 400, 4000)
 STATEFUL_TOL = 1e-4
 PROFILED_CALLS = 5  # calls a streaming engine makes under the profiler, per measurement
+# Phase 24: the dprnn_separate cell's longest batch, 16 x 10 s at stride 1:
+# S = 641 chunks of K = 250 frames, so (rows, steps) of the intra and inter
+# BiLSTMs; bf16 serving held against the fp32 reference in dB
+DPRNN_BATCH, DPRNN_SECONDS = 16, 10.0
+DPRNN_ROWS = ((16 * 641, 250), (16 * 250, 641))
+DPRNN_BF16_DB = 20.0
 # NVIDIA H100 SXM: HBM bytes/s, dense bf16 tensor-core and fp32 FLOP/s
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 
@@ -614,6 +630,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tasnet.update(window_streaming_phases(device, gen, kept))
     stateful_streaming_phases(device, kept)
+    torch.cuda.empty_cache()
+    dprnn = dprnn_phases(device, gen)
     scoring_phases(device, kept)
     kept_dir.cleanup()
     for entry in train:  # rows 3 and 4: their keep-mode launches on the packed path
@@ -664,6 +682,7 @@ def main() -> int:
             # library_ms (cuDNN) includes the input projection; this is the
             # port's side of that work
             "layer_forward_ms": lstm_layer_ms,
+            "dprnn": dprnn,
         },
         *train,
         tasnet,
@@ -2742,6 +2761,116 @@ def stateful_streaming_phases(device, kept) -> None:
         keep_output(kept, "phase 23 causal Conv-TasNet cli separate stateful streaming", root, out)
     del model
     torch.cuda.empty_cache()
+
+
+def dprnn_phases(device, gen) -> dict:
+    """Phase 24; returns the recurrence's checks and times at DPRNN's shapes
+    and the served batch's, for the kernels line."""
+    import torch
+
+    from bench_torch.reference import dprnn as reference
+    from speech_separation_tpu_torch.models.dprnn import DPRNN, chunks_of, serving_fn
+    from speech_separation_tpu_torch.ops.lstm_cuda import (
+        lstm_recurrence,
+        lstm_recurrence_plain,
+        row_slices,
+    )
+
+    root = pathlib.Path(__file__).resolve().parent
+    cfg = json.loads((root / "bench_torch" / "configs" / "dprnn.json").read_text())
+    limit = json.loads((root / "bench_torch" / "limits" / "dprnn_separate.json").read_text())
+    hidden, rev, out = cfg["hidden"], (False, True), {"lstm": []}
+    for rows, steps in DPRNN_ROWS:
+        slices = len(row_slices(rows))
+        w = torch.randn(2, hidden, 4 * hidden, generator=gen, device=device) / hidden**0.5
+        xw = torch.randn(2, rows, steps, 4 * hidden, generator=gen, device=device)
+        flops = 2 * 2 * rows * steps * hidden * 4 * hidden
+        nbytes = 4 * (2 * rows * steps * 4 * hidden + 2 * hidden * 4 * hidden
+                      + rows * steps * 2 * hidden)
+        entry = {"rows": rows, "steps": steps, **bound(nbytes, flops, FP32_FLOPS)}
+        for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            with torch.inference_mode():
+                want = lstm_recurrence_plain(xw, w, reverse=rev, compute_dtype=dt)
+                before = lstm_recurrence.launches
+                got = lstm_recurrence(xw, w, reverse=rev, compute_dtype=dt)
+                again = lstm_recurrence(xw, w, reverse=rev, compute_dtype=dt)
+            torch.cuda.synchronize()
+            launched = lstm_recurrence.launches - before
+            err = max_err([got], [want])
+            lim = (LSTM_TOL if tag == "fp32"
+                   else LSTM_BF16_TOL * max(1.0, want.float().abs().max().item()))
+            same = torch.equal(got, again)
+            if not (err <= lim and same and launched == 2 * slices):
+                raise AssertionError(
+                    f"lstm_recurrence H={hidden} B={rows} T={steps} {tag}: max abs err {err} "
+                    f"(bound {lim}), rerun bit-identical {same}, {launched} launches for 2 calls "
+                    f"of {slices} row slices")
+            del want, got, again
+            x, u = xw.to(dt), w.to(dt)
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: lstm_recurrence(x, u, reverse=rev), iters=3)
+            del x, u
+            entry.update({f"max_abs_err_{tag}": err, f"ms_{tag}": ms,
+                          f"us_per_step_a_launch_{tag}": 1e3 * ms / slices / steps})
+            phase("dprnn", f"lstm_recurrence {tag} D=2 B={rows} T={steps} H={hidden}: max abs err "
+                  f"{err:.3e} <= {lim:.3e} against the {tag} plain loop, rerun bit-identical, "
+                  f"{launched // 2} launches a call ({slices} row slices of <= 256); {ms:.3f} ms a "
+                  f"call, {1e3 * ms / slices / steps:.2f} us a step a launch"
+                  + (f"; bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
+                     f"{100 * entry['bound_ms'] / ms:.1f}% of it" if tag == "fp32" else ""))
+        entry["launches"] = slices
+        out["lstm"].append(entry)
+        del xw
+        torch.cuda.empty_cache()
+
+    samples = int(DPRNN_SECONDS * SAMPLE_RATE)
+    weights = reference.make_weights(cfg, 0, device)
+    with torch.device("meta"):
+        model = DPRNN(cfg["num_speakers"], cfg["enc_dim"], cfg["win"], cfg["bottleneck"],
+                      cfg["hidden"], cfg["chunk"], cfg["blocks"])
+    model = model.to_empty(device=device)
+    model.load_state_dict(weights)
+    params = sum(p.numel() for p in model.parameters())
+    if params != cfg["parameters"]:
+        raise AssertionError(f"DPRNN has {params} parameters, the configuration {cfg['parameters']}")
+    mix = 0.1 * torch.randn(DPRNN_BATCH, samples, generator=gen, device=device)
+    chunks = chunks_of(samples // model.stride, model.hop)
+    expected = cfg["blocks"] * (len(row_slices(DPRNN_BATCH * chunks))
+                                + len(row_slices(DPRNN_BATCH * cfg["chunk"])))
+    with torch.inference_mode():
+        want = reference.separate(weights, cfg, mix).double()
+    errs = {}
+    for tag in ("fp32", "bf16"):
+        serve = serving_fn(model, bf16=tag == "bf16")
+        before = lstm_recurrence.launches
+        got = serve(mix)
+        torch.cuda.synchronize()
+        launched = lstm_recurrence.launches - before
+        diff = (got.double() - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+        errs[tag] = diff.max().item()
+        snr = -20 * math.log10(max(errs[tag], 1e-30))
+        ms = cuda_ms(lambda: serve(mix), iters=2)
+        bad = (launched != expected or got.shape != want.shape
+               or (errs[tag] > limit["est_rel_err"] if tag == "fp32" else snr < DPRNN_BF16_DB))
+        if bad:
+            raise AssertionError(
+                f"DPRNN serving_fn {tag} {tuple(mix.shape)}: worst rel L2 {errs[tag]} against the "
+                f"plain reference (fp32 limit {limit['est_rel_err']}, bf16 {DPRNN_BF16_DB} dB), "
+                f"{launched} recurrence launches for {expected}, shape {tuple(got.shape)}")
+        out[f"serve_rel_err_{tag}"], out[f"serve_ms_{tag}"] = errs[tag], ms
+        phase("dprnn", f"serving_fn {tag} ({params:,} params) on {DPRNN_BATCH} x {DPRNN_SECONDS:.0f}"
+              f" s (S={chunks}): worst rel L2 {errs[tag]:.3e} ({snr:.1f} dB) against the fp32 "
+              f"plain reference ("
+              + (f"<= {limit['est_rel_err']}" if tag == "fp32" else f">= {DPRNN_BF16_DB} dB")
+              + f"), {launched} lstm_recurrence launches a call "
+              f"({cfg['blocks']} x ({len(row_slices(DPRNN_BATCH * chunks))} + "
+              f"{len(row_slices(DPRNN_BATCH * cfg['chunk']))})); {ms:.1f} ms a batch, "
+              f"{DPRNN_BATCH * DPRNN_SECONDS / (ms / 1e3):.1f} audio-s/s")
+        del got
+    out["serve_launches"] = expected
+    del model, weights, want, mix
+    torch.cuda.empty_cache()
+    return out
 
 
 def scoring_phases(device, kept) -> None:

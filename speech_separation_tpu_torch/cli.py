@@ -20,8 +20,9 @@
 ``train`` trains the config's ``variant`` (``--variant`` overrides it) from
 raw waveforms, writing ``train_config.json``, ``metrics.jsonl`` and the best
 checkpoints to the checkpoint directory. ``--workload upit``: the uPIT BLSTM
-(``blstm``) on the PIT loss of its masks, or Conv-TasNet (``tasnet``) wave to
-wave on the negative SI-SDR, with ``tasnet_pallas_trunk`` running the TCN
+(``blstm``) on the PIT loss of its masks, or Conv-TasNet (``tasnet``) or
+DPRNN-TasNet (``dprnn``, its BiLSTMs in the training kernels) wave to wave
+on the negative SI-SDR, with ``tasnet_pallas_trunk`` running the TCN
 trunk's forward and backward in the training CUDA kernels (bf16). With
 ``pack`` the BLSTM trains on sequence-packed rows (``data/packing.py``), its
 recurrences in the training kernels' keep mode; with ``dynamic_mix`` the
@@ -30,10 +31,13 @@ crops; ``data/datasets.py``).
 ``--workload vqvae``: a VQ-VAE codec (``gumbel``, ``v2``, ``t2``, ``t3``,
 ``t3tok``) on the summed squared error plus its auxiliary losses, NAdam for
 the t-series and Adam otherwise. ``separate`` loads the best checkpoint: a
-``blstm`` checkpoint goes to ``separate_directory``; a ``tasnet`` checkpoint
-to the time-domain path, whole utterances or overlapped chunks, with
-``--kernel pallas`` running the TCN trunk in the ``tcn_trunk`` CUDA kernel
-(bf16; the JAX flag's name) and ``--kernel xla`` the module's own forward.
+``blstm`` checkpoint goes to ``separate_directory``; a ``tasnet`` or ``dprnn``
+checkpoint to the time-domain path, whole utterances or overlapped chunks,
+with ``--kernel pallas`` running Conv-TasNet's TCN trunk in the ``tcn_trunk``
+CUDA kernel (bf16; the JAX flag's name) and ``--kernel xla`` the module's own
+forward; DPRNN-TasNet always runs its module (``models.dprnn.serving_fn``,
+its recurrences in the ``lstm_recurrence`` kernel; ``--bf16`` for bf16) and
+refuses ``--kernel pallas`` and streaming.
 ``--streaming-hop-seconds`` separates each utterance hop by hop instead (it
 wins over ``--chunk-seconds`` and turns ``--transfer-int16`` off): a causal
 checkpoint through the exact stateful engine, a gLN one through sliding
@@ -74,9 +78,22 @@ def _device(name: str) -> torch.device:
 
 
 def _build_model(cfg, device: torch.device):
+    from .models.dprnn import DPRNN
     from .models.tasnet import ConvTasNet
     from .models.upit import UPitBlstm
 
+    if cfg.variant == "dprnn":
+        model = DPRNN(
+            num_speakers=cfg.num_speakers,
+            enc_dim=cfg.dprnn_enc_dim,
+            win=cfg.dprnn_win,
+            bottleneck=cfg.dprnn_bottleneck,
+            hidden=cfg.dprnn_hidden,
+            chunk=cfg.dprnn_chunk,
+            blocks=cfg.dprnn_blocks,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        )
+        return model.to(device)
     if cfg.variant == "tasnet":
         model = ConvTasNet(
             num_speakers=cfg.num_speakers,
@@ -102,7 +119,7 @@ def _build_model(cfg, device: torch.device):
 
 def _optimizer(cfg, steps_per_epoch: int):
     """The JAX CLI's choice: a cosine schedule when asked for, else plain Adam
-    for Conv-TasNet and the staircase decay for the BLSTM."""
+    for the time-domain separators and the staircase decay for the BLSTM."""
     from . import train
 
     if cfg.lr_schedule == "cosine":
@@ -112,7 +129,7 @@ def _optimizer(cfg, steps_per_epoch: int):
             warmup_steps=cfg.lr_warmup_steps,
             grad_clip_norm=cfg.grad_clip_norm,
         )
-    if cfg.variant == "tasnet":
+    if cfg.variant in ("tasnet", "dprnn"):
         return train.adam(cfg.learning_rate, grad_clip_norm=cfg.grad_clip_norm)
     return train.exponential_decay_adam(
         cfg.learning_rate, cfg.lr_decay_steps, cfg.lr_decay_rate,
@@ -296,11 +313,12 @@ def cmd_train(args) -> None:
             for split, shuffle in ((cfg.train_split, True), (cfg.val_split, False))
         )
         steps_per_epoch = max(1, len(train_loader.names) // cfg.batch_size)
-        if cfg.variant == "tasnet":
+        if cfg.variant in ("tasnet", "dprnn"):
+            pallas_trunk = cfg.variant == "tasnet" and cfg.tasnet_pallas_trunk
             train_step, eval_step = train.make_time_domain_steps(
                 model,
-                compute_dtype=torch.bfloat16 if cfg.tasnet_pallas_trunk else compute_dtype,
-                pallas_trunk=cfg.tasnet_pallas_trunk,
+                compute_dtype=torch.bfloat16 if pallas_trunk else compute_dtype,
+                pallas_trunk=pallas_trunk,
             )
 
             def batch_arrays(b):
@@ -373,7 +391,7 @@ def cmd_separate(args) -> None:
 
     device = _device(args.device)
     cfg, model = _restore_upit(args.checkpoint_dir, device)
-    if cfg.variant == "tasnet":
+    if cfg.variant in ("tasnet", "dprnn"):
         _separate_time_domain(cfg, model, args, device)
         return
     written = separate_directory(
@@ -392,8 +410,8 @@ def cmd_separate(args) -> None:
 
 
 def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
-    """Conv-TasNet serving of a split (the JAX ``_separate_time_domain``'s
-    full-utterance and chunked branches)."""
+    """Conv-TasNet or DPRNN-TasNet serving of a split (the JAX
+    ``_separate_time_domain``'s full-utterance and chunked branches)."""
     import copy
 
     import numpy as np
@@ -403,6 +421,18 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
     from .ops.quant import dequant_i16, dequantize_estimates_i16, quantize_estimates_i16
 
     use_kernel = args.kernel == "pallas"
+    dprnn = cfg.variant == "dprnn"
+    if dprnn and use_kernel:
+        raise SystemExit(
+            "error: --kernel pallas runs Conv-TasNet's TCN trunk kernel; a dprnn checkpoint "
+            "runs its module, its recurrences in the lstm_recurrence kernel (use --kernel xla, "
+            "the default, and --bf16 for bf16)"
+        )
+    if dprnn and args.streaming_hop_seconds:
+        raise SystemExit(
+            "error: --streaming-hop-seconds streams Conv-TasNet checkpoints; a dprnn checkpoint "
+            "is separated whole or in overlapped chunks (--chunk-seconds)"
+        )
     if use_kernel and cfg.tasnet_causal:
         raise SystemExit(
             "error: --kernel pallas runs the fused TCN trunk, which implements the gLN "
@@ -410,7 +440,11 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
             "Use --kernel xla."
         )
     model.eval()
-    if use_kernel:
+    if dprnn:
+        from .models.dprnn import serving_fn
+
+        base = serving_fn(model, bf16=args.bf16)
+    elif use_kernel:
         # the trunk kernel pads nothing: pad to the encoder stride, trim after
         from .models.tasnet_serving import cuda_apply
 

@@ -1,7 +1,8 @@
-"""Models as ``nn.Module``s: the uPIT BLSTM and Conv-TasNet separators, with
-Conv-TasNet's folded serving and kernel training paths, and the VQ-VAE
-codec family with its quantizers."""
+"""Models as ``nn.Module``s: the uPIT BLSTM, Conv-TasNet and DPRNN-TasNet
+separators, with Conv-TasNet's folded serving and kernel training paths, and
+the VQ-VAE codec family with its quantizers."""
 
+from .dprnn import DPRNN
 from .tasnet import ConvTasNet
 from .tasnet_serving import cuda_apply, fused_apply, train_apply
 from .upit import UPitBlstm
@@ -16,6 +17,7 @@ from .vqvae import VqVaeCodebook, VqVaeGumbel, VqVaeT2, VqVaeT3, VqVaeT3Tok
 
 __all__ = [
     "ConvTasNet",
+    "DPRNN",
     "GumbelSoftmax",
     "ResidualVectorQuantizer",
     "UPitBlstm",

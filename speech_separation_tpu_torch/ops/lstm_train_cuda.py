@@ -12,7 +12,9 @@ kernels:
   slice of 256), tiled by ``lstm_cuda.forward_plan``;
 - :func:`lstm_train_backward` — backward through time, emitting the
   pre-activation gate gradients: ``csrc/lstm_train_backward.cu``, one
-  cooperative launch for all steps, tiled by :func:`backward_plan`.
+  cooperative launch for all steps (per row slice of 256, as the forward;
+  a batch of several slices copies each slice's rows out and back), tiled
+  by :func:`backward_plan`.
 
 Each has a plain PyTorch version (a Python loop over time, the same
 roundings), which the wrapper takes only for a tensor on the CPU; on a CUDA
@@ -49,6 +51,7 @@ from .lstm_cuda import (
     _forward_launch,
     forward_plan,
     resident_tiling,
+    row_slices,
 )
 
 __all__ = [
@@ -329,8 +332,18 @@ def lstm_train_backward(
     dgates = torch.empty((dirs, batch, steps, four_h), dtype=dtype, device=gates.device)
     if steps == 0 or batch == 0:
         return dgates
-    plan = backward_plan(batch, hidden, dtype == torch.bfloat16, **_device_limits(gates.device))
-    _backward_launch(gates, c_all, dy, recurrent, keep, dgates, plan)
+    limits = _device_limits(gates.device)
+    for row0, rows in row_slices(batch):
+        whole = rows == batch
+        part = slice(row0, row0 + rows)
+        out = dgates if whole else torch.empty_like(dgates[:, part])
+        _backward_launch(
+            gates[:, part].contiguous(), c_all[:, part].contiguous(), dy[part], recurrent,
+            None if keep is None else keep[:, part].contiguous(), out,
+            backward_plan(rows, hidden, dtype == torch.bfloat16, **limits),
+        )
+        if not whole:
+            dgates[:, part] = out
     return dgates
 
 

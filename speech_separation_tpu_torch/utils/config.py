@@ -2,8 +2,10 @@
 ``utils/config.py``).
 
 :class:`UPitTrainConfig` keeps the JAX package's field names and defaults, so
-one ``cfg.json`` configures either package. ``variant`` is ``"blstm"`` or
-``"tasnet"``, both served and trained (``tasnet_pallas_trunk`` trains
+one ``cfg.json`` configures either package (the ``dprnn_*`` fields are the
+port's own). ``variant`` is ``"blstm"``, ``"tasnet"`` or ``"dprnn"``
+(DPRNN-TasNet, ``models/dprnn.py``), each served and trained
+(``tasnet_pallas_trunk`` trains
 Conv-TasNet through the trunk's training kernels; ``pack`` trains the BLSTM
 on sequence-packed rows; ``dynamic_mix`` remixes the training stream every
 epoch). Fields whose feature the port does not serve raise ``ValueError`` when
@@ -56,7 +58,7 @@ class UPitTrainConfig:
     data_root: str = "./mycode/wsj0_2mix/use_this"
     train_split: str = "tr"
     val_split: str = "cv"
-    variant: str = "blstm"  # "blstm" or "tasnet" in the port; "conv" waits
+    variant: str = "blstm"  # "blstm", "tasnet" or "dprnn" in the port; "conv" waits
     batch_size: int = 2
     epochs: int = 5
     patience: int = 50
@@ -87,6 +89,12 @@ class UPitTrainConfig:
     tasnet_blocks: int = 7
     tasnet_repeats: int = 3
     tasnet_causal: bool = False
+    dprnn_enc_dim: int = 64
+    dprnn_win: int = 2
+    dprnn_bottleneck: int = 64
+    dprnn_hidden: int = 128
+    dprnn_chunk: int = 250
+    dprnn_blocks: int = 6
     checkpoint_dir: str = "./CKPT"
     seed: int = 42
     stft: StftConfig = field(default_factory=StftConfig)
@@ -94,8 +102,8 @@ class UPitTrainConfig:
 
     def __post_init__(self) -> None:
         unserved = []
-        if self.variant not in ("blstm", "tasnet"):
-            unserved.append(f"variant={self.variant!r} (only 'blstm' and 'tasnet')")
+        if self.variant not in ("blstm", "tasnet", "dprnn"):
+            unserved.append(f"variant={self.variant!r} (only 'blstm', 'tasnet' and 'dprnn')")
         if self.dynamic_mix and self.pack:
             # the JAX CLI drops dynamic mixing under pack without a word; the
             # port says so instead

@@ -17,10 +17,12 @@ from speech_separation_tpu_torch.data.datasets import WaveformLoader
 from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
 from speech_separation_tpu_torch.models.upit import UPitBlstm
 from speech_separation_tpu_torch.ops.lstm_cuda import (
+    _device_limits as _lstm_limits,
     _forward_launch,
     forward_plan,
     lstm_recurrence,
     lstm_recurrence_plain,
+    row_slices,
 )
 from speech_separation_tpu_torch.ops.lstm_train_cuda import (
     _backward_launch,
@@ -32,6 +34,7 @@ from speech_separation_tpu_torch.ops.lstm_train_cuda import (
     lstm_train_forward,
     lstm_train_forward_plain,
 )
+from speech_separation_tpu_torch.models.dprnn import DPRNN
 from speech_separation_tpu_torch.models.tasnet import ConvTasNet
 from speech_separation_tpu_torch.models.vq import ResidualVectorQuantizer, VectorQuantizer
 from speech_separation_tpu_torch.models.vqvae import VqVaeT3Tok
@@ -473,6 +476,121 @@ def test_packed_train_step_kernel_path_matches_plain(cuda_device, tmp_path):
         singles[one.names[0]] = eval_single(state, *args).item()
     want = sum(singles[n] for row in b.names for n in row)
     np.testing.assert_allclose(eval_packed(state, mix, sources, seg).item(), want, rtol=1e-4)
+
+
+def _device_inputs(dirs, batch, steps, hidden, device, seed):
+    """DPRNN-sized recurrence inputs drawn on the card (gigabytes of them)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xw = torch.randn((dirs, batch, steps, 4 * hidden), generator=gen, device=device)
+    u = torch.randn((dirs, hidden, 4 * hidden), generator=gen, device=device) / np.sqrt(hidden)
+    return xw, u
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, LSTM_ATOL), (torch.bfloat16, LSTM_BF16_ATOL)])
+@pytest.mark.parametrize("batch,steps", [(4_000, 641), (10_256, 250)])  # DPRNN's inter and intra rows
+def test_lstm_kernel_at_the_dual_path_shapes(cuda_device, dtype, atol, batch, steps):
+    """Row 2 at H = 128 over a 16 x 10 s batch's BiLSTM rows (K = 250, S =
+    641): one launch a row slice of 256, within the plain loop's bound."""
+    xw, u = _device_inputs(2, batch, steps, 128, cuda_device, seed=41)
+    before = lstm_recurrence.launches
+    got = lstm_recurrence(xw, u, reverse=(False, True), compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches == before + -(-batch // 256)
+    want = lstm_recurrence_plain(xw, u, reverse=(False, True), compute_dtype=dtype)
+    assert (got.float() - want.float()).abs().max().item() <= _bound(atol, dtype, [want])
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, TRAIN_ATOL), (torch.bfloat16, TRAIN_BF16_ATOL)])
+def test_lstm_train_kernels_at_the_dual_path_width(cuda_device, dtype, atol):
+    """Rows 3 and 4 at H = 128 over 1,028 rows of 250 steps (a DPRNN training
+    batch's intra rows): five row slices each, within the plain loops' bound."""
+    batch, steps, hidden = 1_028, 250, 128
+    xw, u = _device_inputs(2, batch, steps, hidden, cuda_device, seed=43)
+    before = (lstm_train_forward.launches, lstm_train_backward.launches)
+    got = lstm_train_forward(xw, u, compute_dtype=dtype)
+    want = lstm_train_forward_plain(xw, u, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    bound = _bound(atol, dtype, want)
+    for g, w, name in zip(got, want, ("out", "gates", "c_all")):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert (g.float() - w.float()).abs().max().item() <= bound, name
+    _, gates, c_all = want
+    dy = torch.randn((batch, steps, 2 * hidden), generator=torch.Generator(
+        device=cuda_device).manual_seed(44), device=cuda_device).to(dtype)
+    got_dg = lstm_train_backward(gates, c_all, dy, u, compute_dtype=dtype)
+    again = lstm_train_backward(gates, c_all, dy, u, compute_dtype=dtype)
+    want_dg = lstm_train_backward_plain(gates, c_all, dy, u, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got_dg, again)
+    assert (got_dg.float() - want_dg.float()).abs().max().item() <= _bound(atol, dtype, [want_dg])
+    assert (lstm_train_forward.launches - before[0], lstm_train_backward.launches - before[1]) == (5, 10)
+
+
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_train_backward_row_slices(cuda_device, dtype, keep):
+    """The backward in row slices of 256: a batch of one slice is the one
+    launch over the whole batch it was before the slicing, bit for bit, and a
+    batch of three slices equals each slice's rows run on their own."""
+    hidden, steps = 128, 40
+    bf16 = dtype == torch.bfloat16
+    for batch in (200, 256):
+        xw, u, k = _train_inputs(2, batch, steps, hidden, cuda_device, seed=47, keep=keep)
+        _, gates, c_all = lstm_train_forward_plain(xw, u, keep=k, compute_dtype=dtype)
+        dy = _normal((batch, steps, 2 * hidden), seed=48).to(cuda_device).to(dtype)
+        got = lstm_train_backward(gates, c_all, dy, u, keep=k, compute_dtype=dtype)
+        whole = torch.empty_like(got)
+        _backward_launch(gates.to(dtype).contiguous(), c_all.float().contiguous(), dy.contiguous(),
+                         u.to(dtype).contiguous(), k, whole,
+                         backward_plan(batch, hidden, bf16, **_lstm_limits(gates.device)))
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole), batch
+    batch = 600
+    slices = row_slices(batch)
+    assert len(slices) == 3
+    xw, u, k = _train_inputs(2, batch, steps, hidden, cuda_device, seed=49, keep=keep)
+    _, gates, c_all = lstm_train_forward_plain(xw, u, keep=k, compute_dtype=dtype)
+    dy = _normal((batch, steps, 2 * hidden), seed=50).to(cuda_device).to(dtype)
+    before = lstm_train_backward.launches
+    got = lstm_train_backward(gates, c_all, dy, u, keep=k, compute_dtype=dtype)
+    assert lstm_train_backward.launches == before + 3
+    parts = [lstm_train_backward(gates[:, r0:r0 + n], c_all[:, r0:r0 + n], dy[r0:r0 + n], u,
+                                 keep=None if k is None else k[:, r0:r0 + n], compute_dtype=dtype)
+             for r0, n in slices]
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.cat(parts, dim=1))
+
+
+def test_dprnn_module_matches_the_reference(cuda_device):
+    """DPRNN at toy widths on the card: serving (row 2) and the SI-SDR PIT
+    loss's gradients (rows 3, 4) against the benchmark's plain reference."""
+    from bench_torch.reference import dprnn as reference
+    from speech_separation_tpu_torch.losses import pit_si_sdr_loss
+
+    toy = dict(num_speakers=2, enc_dim=8, win=2, bottleneck=8, hidden=16, chunk=10, blocks=2)
+    weights = reference.make_weights(toy, 7, cuda_device)
+    model = DPRNN(**toy).to(cuda_device)
+    model.load_state_dict(weights)
+    mix = _normal((3, 523), seed=45).to(cuda_device)
+    before = (lstm_recurrence.launches, lstm_train_forward.launches, lstm_train_backward.launches)
+    with torch.no_grad():
+        got = model(mix)
+    want = reference.separate(weights, toy, mix)
+    assert (got - want).abs().max().item() <= 1e-4
+    sources, lengths = _normal((3, 2, 523), seed=46).to(cuda_device), torch.tensor([523, 400, 300])
+    pit_si_sdr_loss(model(mix), sources, lengths).backward()
+    params = {k: v.clone().requires_grad_(True) for k, v in weights.items()}
+    loss = pit_si_sdr_loss(reference.forward(params, toy, mix), sources, lengths)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    for name, p in model.named_parameters():
+        assert ((p.grad - grads[name]).norm() / grads[name].norm()).item() <= GRAD_REL, name
+    # four BiLSTMs, served in row 2 and trained in rows 3 and 4: an intra one over
+    # 3 x 106 chunks in two row slices of 256, an inter one over 3 x 10 positions in one
+    assert (lstm_recurrence.launches - before[0], lstm_train_forward.launches - before[1],
+            lstm_train_backward.launches - before[2]) == (6, 6, 6)
+    with pytest.raises(ValueError, match="H=1100"):  # the plan's own refusal, no fallback
+        with torch.no_grad():
+            DPRNN(**{**toy, "hidden": 1100}).to(cuda_device)(mix)
 
 
 def _trunk_inputs(batch, frames, cb, ch, dils, device, seed):

@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from speech_separation_tpu_torch import train
 from speech_separation_tpu_torch.data.datasets import prefetch_to_device
+from speech_separation_tpu_torch.models.dprnn import DPRNN
 from speech_separation_tpu_torch.models.tasnet import ConvTasNet
 from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply
 from speech_separation_tpu_torch.models.upit import UPitBlstm
@@ -189,3 +190,40 @@ def test_train_step_spans_forward_then_backward(factory):
         assert f[1] <= b[0]
     # the optimizer's update keeps torch's own span, outside the port's
     assert not any(_overlap(a, s) for a in adam for s in forward + backward)
+
+
+TINY_DPRNN = dict(enc_dim=8, bottleneck=8, hidden=8, chunk=10, blocks=3)
+DPRNN_SPANS = ("sst.dprnn.segment", "sst.dprnn.intra", "sst.dprnn.inter", "sst.dprnn.merge")
+
+
+def _dprnn_forwards(count: int) -> list[torch.Tensor]:
+    model = DPRNN(**TINY_DPRNN, generator=torch.Generator().manual_seed(0)).eval()
+    mix = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 77)).astype(np.float32))
+    with torch.no_grad():
+        return [model(mix) for _ in range(count)]
+
+
+def test_dprnn_spans_once_a_block_a_forward_in_order():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = _dprnn_forwards(2)
+    blocks = TINY_DPRNN["blocks"]
+    segment, merge = _spans(prof, "sst.dprnn.segment"), _spans(prof, "sst.dprnn.merge")
+    intra, inter = _spans(prof, "sst.dprnn.intra"), _spans(prof, "sst.dprnn.inter")
+    assert len(segment) == len(merge) == 2 and len(intra) == len(inter) == 2 * blocks
+    for f in range(2):  # segment, then intra and inter a block, then merge, none overlapping
+        order = [segment[f]] + [s for pair in zip(intra[f * blocks:(f + 1) * blocks],
+                                                  inter[f * blocks:(f + 1) * blocks]) for s in pair]
+        order.append(merge[f])
+        assert all(a[1] <= b[0] for a, b in zip(order, order[1:]))
+    ours = [e for e in _events(prof) if e.name().startswith("sst.dprnn.")]
+    assert {e.name() for e in ours} == set(DPRNN_SPANS)
+    assert not any(e.is_user_annotation() for e in ours)  # host events: no GPU mirror
+    for a, b in zip(traced, _dprnn_forwards(2)):  # the outputs unchanged by the profiler
+        assert torch.equal(a, b)
+
+
+def test_dprnn_spans_build_nothing_with_the_profiler_off(monkeypatch):
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _Counting)
+    monkeypatch.setattr(_Counting, "built", [])
+    _dprnn_forwards(1)
+    assert _Counting.built == []
