@@ -17,9 +17,11 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    ``torch.fft`` oracle and ``stft_fft_plain`` (the kernel's algorithm in
    PyTorch), the result a view of the kernel's buffer; and the persistent
    LSTM recurrence (T=501) at full width (H=496, both directions) at B=16,
-   at the serving batch B=256 and at B=300 (two row slices, two launches a
-   call), at a ragged B=3, H=20 and in one direction, in fp32 and bf16, each
-   against its plain loop and rerun bit-identical;
+   at the serving batch B=256, at B=300 (one launch of 10 row groups a
+   block) and B=600 (two row slices of at most 512, two launches a call), at
+   a ragged B=3, H=20 and in one direction, in fp32 and bf16, each against
+   its plain loop and rerun bit-identical, launches as ``forward_plan``'s
+   row slices;
 4. serving path — ``separate_directory`` over the ``tt`` split of a synthetic
    fixture with the full-width ``UPitBlstm`` (16,077,602 random parameters
    from seed 0), in fp32 and bf16, counting each kernel's launches (the LSTM
@@ -172,12 +174,13 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 24. DPRNN-TasNet — the LSTM recurrence at H = 128 over the dual-path rows of
    one 16 × 10 s batch (K = 250, S = 641): 10,256 intra rows of 250 steps
    and 4,000 inter rows of 641 steps, in fp32 and bf16, each against its
-   plain loop, rerun bit-identical, one launch a row slice of 256 (41 and
-   16), timed beside its bound; then ``models.dprnn.serving_fn`` (what ``cli
+   plain loop, rerun bit-identical, one launch a row slice of
+   ``forward_plan`` (6 and 2, of up to 2,048 rows), timed in µs a step a
+   launch beside its bound; then ``models.dprnn.serving_fn`` (what ``cli
    separate`` serves a ``dprnn`` checkpoint through) at the published widths
    (2,583,426 parameters, ``bench_torch/reference/dprnn.py::make_weights``)
    on that batch: fp32 against the plain reference within the
-   ``dprnn_separate`` cell's ``est_rel_err`` limit, 6 × (41 + 16) = 342
+   ``dprnn_separate`` cell's ``est_rel_err`` limit, 6 × (6 + 2) = 48
    recurrence launches a call, bf16 against it in dB, and ms a batch.
 
 Phase 15 also holds the search's NaN picks: a NaN score orders below every
@@ -405,9 +408,10 @@ def main() -> int:
     from speech_separation_tpu_torch.models.blstm import BiLSTM
     from speech_separation_tpu_torch.models.upit import UPitBlstm
     from speech_separation_tpu_torch.ops.lstm_cuda import (
+        _device_limits,
+        forward_plan,
         lstm_recurrence,
         lstm_recurrence_plain,
-        row_slices,
     )
     from speech_separation_tpu_torch.ops.stft import stft, stft_frame_count
     from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda, stft_fft_plain
@@ -464,16 +468,17 @@ def main() -> int:
     hidden = 496
     u = model.bilstm_0.cells.recurrent_kernel.detach()
     rev = (False, True)
-    # (D, B, H): the full width at B = 16, the serving batch, two row slices,
-    # a ragged B and H (rows not 16-byte aligned), one direction
+    # (D, B, H): the full width at B = 16, the serving batch, one launch of
+    # 10 groups a block, two row slices, a ragged B and H (rows not 16-byte
+    # aligned), one direction
     lstm_err = {"fp32": 0.0, "bf16": 0.0}
-    for dirs, b, h in ((2, 16, hidden), (2, BENCH_BATCH, hidden), (2, 300, hidden), (2, 3, 20),
-                       (1, 16, hidden)):
+    for dirs, b, h in ((2, 16, hidden), (2, BENCH_BATCH, hidden), (2, 300, hidden),
+                       (2, 600, hidden), (2, 3, 20), (1, 16, hidden)):
         w = (u[:dirs] if h == hidden
              else torch.randn(dirs, h, 4 * h, generator=gen, device=device) / h**0.5)
         xw = torch.randn(dirs, b, 501, 4 * h, generator=gen, device=device)
         reverse = rev if dirs == 2 else (True,)
-        slices = len(row_slices(b))
+        slices = len(forward_plan(b, h, False, dirs, **_device_limits(device)).slices)
         for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             with torch.inference_mode():
                 want = lstm_recurrence_plain(xw, w, reverse=reverse, compute_dtype=dt)
@@ -2771,17 +2776,22 @@ def dprnn_phases(device, gen) -> dict:
     from bench_torch.reference import dprnn as reference
     from speech_separation_tpu_torch.models.dprnn import DPRNN, chunks_of, serving_fn
     from speech_separation_tpu_torch.ops.lstm_cuda import (
+        _device_limits,
+        forward_plan,
         lstm_recurrence,
         lstm_recurrence_plain,
-        row_slices,
     )
 
     root = pathlib.Path(__file__).resolve().parent
     cfg = json.loads((root / "bench_torch" / "configs" / "dprnn.json").read_text())
     limit = json.loads((root / "bench_torch" / "limits" / "dprnn_separate.json").read_text())
     hidden, rev, out = cfg["hidden"], (False, True), {"lstm": []}
+
+    def slices_of(rows: int) -> tuple:  # the plan's row slices, both directions
+        return forward_plan(rows, hidden, False, 2, **_device_limits(device)).slices
+
     for rows, steps in DPRNN_ROWS:
-        slices = len(row_slices(rows))
+        slices = len(slices_of(rows))
         w = torch.randn(2, hidden, 4 * hidden, generator=gen, device=device) / hidden**0.5
         xw = torch.randn(2, rows, steps, 4 * hidden, generator=gen, device=device)
         flops = 2 * 2 * rows * steps * hidden * 4 * hidden
@@ -2812,12 +2822,15 @@ def dprnn_phases(device, gen) -> dict:
             del x, u
             entry.update({f"max_abs_err_{tag}": err, f"ms_{tag}": ms,
                           f"us_per_step_a_launch_{tag}": 1e3 * ms / slices / steps})
+            if tag == "fp32":  # the bound is the fp32 configuration's
+                entry["bound_share"] = 100 * entry["bound_ms"] / ms
             phase("dprnn", f"lstm_recurrence {tag} D=2 B={rows} T={steps} H={hidden}: max abs err "
                   f"{err:.3e} <= {lim:.3e} against the {tag} plain loop, rerun bit-identical, "
-                  f"{launched // 2} launches a call ({slices} row slices of <= 256); {ms:.3f} ms a "
-                  f"call, {1e3 * ms / slices / steps:.2f} us a step a launch"
+                  f"{launched // 2} launches a call (row slices of <= "
+                  f"{slices_of(rows)[0][1]}); {ms:.3f} ms a call, "
+                  f"{1e3 * ms / slices / steps:.2f} us a step a launch"
                   + (f"; bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
-                     f"{100 * entry['bound_ms'] / ms:.1f}% of it" if tag == "fp32" else ""))
+                     f"{entry['bound_share']:.1f}% of it" if tag == "fp32" else ""))
         entry["launches"] = slices
         out["lstm"].append(entry)
         del xw
@@ -2835,8 +2848,8 @@ def dprnn_phases(device, gen) -> dict:
         raise AssertionError(f"DPRNN has {params} parameters, the configuration {cfg['parameters']}")
     mix = 0.1 * torch.randn(DPRNN_BATCH, samples, generator=gen, device=device)
     chunks = chunks_of(samples // model.stride, model.hop)
-    expected = cfg["blocks"] * (len(row_slices(DPRNN_BATCH * chunks))
-                                + len(row_slices(DPRNN_BATCH * cfg["chunk"])))
+    launches = [len(slices_of(DPRNN_BATCH * n)) for n in (chunks, cfg["chunk"])]
+    expected = cfg["blocks"] * sum(launches)
     with torch.inference_mode():
         want = reference.separate(weights, cfg, mix).double()
     errs = {}
@@ -2863,8 +2876,7 @@ def dprnn_phases(device, gen) -> dict:
               f"plain reference ("
               + (f"<= {limit['est_rel_err']}" if tag == "fp32" else f">= {DPRNN_BF16_DB} dB")
               + f"), {launched} lstm_recurrence launches a call "
-              f"({cfg['blocks']} x ({len(row_slices(DPRNN_BATCH * chunks))} + "
-              f"{len(row_slices(DPRNN_BATCH * cfg['chunk']))})); {ms:.1f} ms a batch, "
+              f"({cfg['blocks']} x ({launches[0]} + {launches[1]})); {ms:.1f} ms a batch, "
               f"{DPRNN_BATCH * DPRNN_SECONDS / (ms / 1e3):.1f} audio-s/s")
         del got
     out["serve_launches"] = expected

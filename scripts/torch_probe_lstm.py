@@ -2,13 +2,16 @@
 """Where the persistent LSTM kernels' step time goes, on one NVIDIA GPU.
 
     python3 scripts/torch_probe_lstm.py [--batch 32] [--serve-batch 256] [--steps 501]
-                                        [--hidden 496] [--sass DIR]
+                                        [--hidden 496] [--dual-rows 2048] [--dual-steps 250]
+                                        [--dual-hidden 128] [--sass DIR]
 
 Builds copies of ``csrc/lstm_train_backward.cu`` and ``csrc/lstm_recurrence.cu``
 with the kernels' probe switches set by ``-D`` flags, and times each beside
 the kernel itself, both directions, fp32 and bf16: the backward and the
 training forward at the training bench's shape (B = 32, T = 501, H = 496), the
-serving forward at the serving bench's batch (B = 256).
+serving forward at the serving bench's batch (B = 256) and at DPRNN's
+dual-path width (2,048 rows of 250 steps at H = 128: one launch of 16 groups
+a block, walked in several passes a step).
 
 Backward copies (``SST_BWD_*``):
 
@@ -33,7 +36,11 @@ Forward copies (``SST_FWD_*``), for the training forward and the serving one:
   holds); ``barrier and gates only`` (neither: the per-step barrier, the xw
   loads, the gate math and the stores); and the kernel itself multiplying
   fewer groups a pass than its plan, ``N group(s) a pass`` (the same
-  function, its sums split otherwise among the warps).
+  function, its sums split otherwise among the warps). At the dual-path
+  width also ``copies not ahead`` (each pass's h_{s-1} copied at the top of
+  its own pass and its xw_t loaded into registers, not both copied into
+  shared memory during the pass before) and ``256-row slices`` (the plan of
+  a 256-row batch, one launch a slice, one after another).
 
 The copies that skip work compute wrong outputs by design; the others must
 equal the kernel's, which the line reports. They are used for nothing else.
@@ -88,7 +95,7 @@ SOURCES = {
 def registers(ptxas_log: str) -> dict:
     """Registers a thread of each LSTM kernel instance in a ``-Xptxas -v`` log,
     keyed by compute type and template arguments (``fp32``, ``bf16+keep``,
-    ``fp32+train+streamed+pass2``, ...)."""
+    ``fp32+train+streamed+pass2``, ``bf16+pass8+ahead``, ...)."""
     out, name = {}, None
     for line in ptxas_log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -98,10 +105,11 @@ def registers(ptxas_log: str) -> dict:
         if used and name and "persistent_kernel" in name:
             kind = "fp32" if "kernelIf" in name else "bf16"
             flags = re.findall(r"Lb([01])E", name)
-            if "lstm_fwd" in name:  # kTrain, kKeep, kResident, kPass
+            if "lstm_fwd" in name:  # kTrain, kKeep, kResident, kPass, kAhead
                 kind += "+train" * (flags[0] == "1") + "+keep" * (flags[1] == "1")
                 kind += "+streamed" * (flags[2] == "0")
                 kind += f"+pass{re.search(r'Li(\d+)E', name).group(1)}"
+                kind += "+ahead" * (flags[3] == "1")
             else:  # kKeep
                 kind += "+keep" * (flags[0] == "1")
             out[kind] = int(used.group(1))
@@ -115,6 +123,9 @@ def main() -> int:
     parser.add_argument("--serve-batch", type=int, default=256)
     parser.add_argument("--steps", type=int, default=501)
     parser.add_argument("--hidden", type=int, default=496)
+    parser.add_argument("--dual-rows", type=int, default=2048)
+    parser.add_argument("--dual-steps", type=int, default=250)
+    parser.add_argument("--dual-hidden", type=int, default=128)
     parser.add_argument("--sass", type=pathlib.Path, help="write each copy's SASS here")
     args = parser.parse_args()
 
@@ -168,7 +179,8 @@ def main() -> int:
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             bf16 = int(dtype == torch.bfloat16)
             u = (torch.randn(2, h, 4 * h, generator=gen, device=device) / h**0.5).to(dtype)
-            runs = {}  # kernel -> (variants, run(fn), the output to compare, plan, batch)
+            # kernel -> (source, entry, run(fn, plan), the output to compare, plan, batch, steps)
+            runs = {}
 
             xw = torch.randn(2, b, t, 4 * h, generator=gen, device=device).to(dtype)
             _, gates, c_all = L.lstm_train_forward(xw, u, compute_dtype=dtype)
@@ -182,7 +194,8 @@ def main() -> int:
                           dgates.data_ptr(), counters.data_ptr(), 2, b, t, h, L.REVERSE_MASK,
                           bf16, plan.groups, int(plan.resident), stream)
 
-            runs["backward"] = ("backward", "sst_lstm_train_backward", backward, dgates, bplan, b)
+            runs["backward"] = ("backward", "sst_lstm_train_backward", backward, dgates, bplan, b,
+                                t)
 
             fplan = F.forward_plan(b, h, bool(bf16), 2, **limits)
             out = torch.empty(b, t, 2 * h, dtype=dtype, device=device)
@@ -193,36 +206,66 @@ def main() -> int:
                 return fn(xw.data_ptr(), u.data_ptr(), out.data_ptr(), g_out.data_ptr(),
                           c_out.data_ptr(), None, counters.data_ptr(), 2, b, 0, b, t, h,
                           L.REVERSE_MASK, bf16, plan.groups, plan.pass_groups,
-                          int(plan.resident), stream)
+                          int(plan.resident), int(plan.ahead), stream)
 
             runs["train forward"] = ("forward", "sst_lstm_train_forward", train_forward, out,
-                                     fplan, b)
+                                     fplan, b, t)
+
+            def serving(rows, steps, hidden, weights):
+                """The serving forward's launches at one shape: (run, output, plan)."""
+                xs = torch.randn(2, rows, steps, 4 * hidden, generator=gen, device=device)
+                xs = xs.to(dtype)
+                s_out = torch.empty(rows, steps, 2 * hidden, dtype=dtype, device=device)
+
+                def serve_forward(fn, plan):
+                    for row0, n in plan.slices:
+                        counters = torch.zeros((2, plan.row_blocks), dtype=torch.int32,
+                                               device=device)
+                        code = fn(xs.data_ptr(), weights.data_ptr(), s_out.data_ptr(),
+                                  counters.data_ptr(), 2, rows, row0, n, steps, hidden,
+                                  L.REVERSE_MASK, bf16, plan.groups, plan.pass_groups,
+                                  int(plan.resident), int(plan.ahead), stream)
+                        if code != 0:
+                            return code
+                    return 0
+
+                return serve_forward, s_out, F.forward_plan(rows, hidden, bool(bf16), 2, **limits)
 
             sb = args.serve_batch
-            xs = torch.randn(2, sb, t, 4 * h, generator=gen, device=device).to(dtype)
-            splan = F.forward_plan(sb, h, bool(bf16), 2, **limits)
+            serve_forward, s_out, splan = serving(sb, t, h, u)
             if len(splan.slices) != 1:
-                raise SystemExit(f"--serve-batch {sb} needs {len(splan.slices)} launches; take <= 256")
-            s_out = torch.empty(sb, t, 2 * h, dtype=dtype, device=device)
-
-            def serve_forward(fn, plan=splan):
-                counters = torch.zeros((2, plan.row_blocks), dtype=torch.int32, device=device)
-                return fn(xs.data_ptr(), u.data_ptr(), s_out.data_ptr(), counters.data_ptr(), 2,
-                          sb, 0, sb, t, h, L.REVERSE_MASK, bf16, plan.groups,
-                          plan.pass_groups, int(plan.resident), stream)
-
+                raise SystemExit(f"--serve-batch {sb} needs {len(splan.slices)} launches; take "
+                                 f"<= {F.launch_rows(h, 2, sms=limits['sms'])}")
             runs["serving forward"] = ("forward", "sst_lstm_recurrence", serve_forward, s_out,
-                                       splan, sb)
+                                       splan, sb, t)
+            dr, dt_, dh = args.dual_rows, args.dual_steps, args.dual_hidden
+            du = (torch.randn(2, dh, 4 * dh, generator=gen, device=device) / dh**0.5).to(dtype)
+            dual_forward, d_out, dplan = serving(dr, dt_, dh, du)
+            runs["serving forward, dual-path width"] = (
+                "forward", "sst_lstm_recurrence", dual_forward, d_out, dplan, dr, dt_)
+            # the same kernel in the plan a 256-row batch gets, one launch a
+            # 256-row slice; its sums are the plan's where the groups a pass are
+            sliced = dataclasses.replace(F.forward_plan(min(dr, F.FWD_MAX_ROWS), dh, bool(bf16), 2,
+                                                        **limits), slices=F.row_slices(dr))
 
-            for kernel, (which, c_name, run, result, plan, batch) in runs.items():
+            for kernel, (which, c_name, run, result, plan, batch, steps) in runs.items():
                 variants, exact_names = SOURCES[which][1], SOURCES[which][2]
                 fns = {name: (entry((which, name), c_name), plan) for name in variants}
+                exact_names = set(exact_names)
                 if which == "forward":  # the kernel with other launch plans
                     kernel_fn = entry((which, "kernel"), c_name)
                     for p in (1, 2, 4):
                         if p < plan.pass_groups:
-                            fns[f"{p} group(s) a pass"] = (
-                                kernel_fn, dataclasses.replace(plan, pass_groups=p))
+                            fns[f"{p} group(s) a pass"] = (kernel_fn, dataclasses.replace(
+                                plan, pass_groups=p, ahead=plan.ahead and p > 1))
+                    if plan.ahead:
+                        fns["copies not ahead"] = (kernel_fn,
+                                                   dataclasses.replace(plan, ahead=False))
+                        exact_names.add("copies not ahead")
+                    if plan is dplan:
+                        fns["256-row slices"] = (kernel_fn, sliced)
+                        if sliced.pass_groups == plan.pass_groups:
+                            exact_names.add("256-row slices")
 
                 def call(name):
                     code = run(*fns[name])
@@ -247,18 +290,20 @@ def main() -> int:
                         torch.cuda.synchronize()
                         times.setdefault(name, []).append(start.elapsed_time(end) / 5)
                 print(json.dumps({
-                    "kernel": kernel, "dtype": tag, "batch": batch, "steps": t, "hidden": h,
-                    "smi": smi,
+                    "kernel": kernel, "dtype": tag, "batch": batch, "steps": steps,
+                    "hidden": dh if plan is dplan else h, "smi": smi,
                     "plan": {"groups": plan.groups, "resident": plan.resident, "smem": plan.smem,
-                             "blocks": plan.blocks},
+                             "blocks": plan.blocks, "ahead": getattr(plan, "ahead", None),
+                             "launches": len(getattr(plan, "slices", ((0, batch),)))},
                     "ms": {k: min(v) for k, v in times.items()},
-                    "us_per_step": {k: 1e3 * min(v) / t for k, v in times.items()},
+                    "us_per_step": {k: 1e3 * min(v) / steps for k, v in times.items()},
                     "plan_pass_groups": getattr(plan, "pass_groups", None),
                     "registers": {k: {kind: n for kind, n in regs[which, k].items()
                                       if kind.startswith(tag)} for k in variants},
                     "equal_to_kernel": exact,
                 }), flush=True)
-            del xw, xs, gates, c_all, dy, dgates, out, s_out, g_out, c_out
+            del xw, gates, c_all, dy, dgates, out, s_out, d_out, g_out, c_out, runs
+            del serve_forward, dual_forward
             torch.cuda.empty_cache()
     return 0
 

@@ -41,12 +41,12 @@ _SIGNATURES = {
     # signal, table, out, batch, samples, frames, size, shift, pad, stream
     "sst_stft_analysis": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # xw, u, out, counters, dirs, batch, row0, rows, steps, hidden, reverse_mask,
-    # bf16, groups, pass, resident, stream
-    "sst_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # bf16, groups, pass, resident, ahead, stream
+    "sst_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # xw, u, out, gates, c_all, keep, counters, then sst_lstm_recurrence's ints
     # and stream
     "sst_lstm_train_forward": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # gates, c_all, dy, u, keep, dgates, counters, dirs, batch, steps, hidden,
     # reverse_mask, bf16, groups, resident, stream

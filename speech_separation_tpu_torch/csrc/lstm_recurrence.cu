@@ -42,9 +42,16 @@
 //   four gate columns g * H + j, 64 columns of U), every block resident at
 //   once (cudaLaunchCooperativeKernel refuses a grid that cannot be, and the
 //   caller raises). ops/lstm_cuda.py::forward_plan picks the groups a block
-//   owns, how many it multiplies in one pass and whether U
-//   stays in shared memory from the card's SM count and shared memory, and
-//   cuts a batch above 256 rows into row slices, one launch each;
+//   owns, how many it multiplies in one pass, whether U stays in shared
+//   memory and whether the next pass's inputs are copied ahead from the
+//   card's SM count and shared memory, and cuts a batch into as few row
+//   slices as the resident grid holds at 16 groups a block (2,048 rows at
+//   H = 128, 512 at H = 496), one launch each: at small H a launch of 256
+//   rows fills the card with blocks of 2 groups each, and slices that run
+//   one after another pay the step's fixed cost (the barrier, the L2 round
+//   trip, the syncs and the epilogue) once a slice, where one launch of
+//   eight times the rows pays the barrier once and walks its groups in
+//   passes;
 // - a block keeps its U slice transposed in shared memory for the whole call
 //   ([64][H + 8], 127 KB fp32 at H = 496), so U is read from device memory
 //   once a call; where the fp32 slice does not fit (H > 608), the same kernel
@@ -65,6 +72,14 @@
 // - a pass multiplies 1, 2 (fp32) or up to 8 (bf16) groups, the eight warps
 //   splitting each group's reduction 8 / pass ways, so a block's syncs and
 //   partial sums are paid once a pass, not once a group;
+// - where a block walks several passes a step and shared memory holds
+//   second buffers of a pass (kAhead: fp32 at H = 128 takes 120 KB, not the
+//   83 KB of one; at H = 496 there is no room), the next pass's h_{s-1} and
+//   xw_t are copied (cp.async) right after this pass's have landed, into the
+//   other buffers, so they arrive during this pass's product and epilogue:
+//   only the first pass of a step waits on L2 for h_{s-1}, and no pass waits
+//   on device memory for xw_t, which bf16 did at each pass's first use (the
+//   conversion to fp32 stalled where the load was issued);
 // - fp32: plain FMA (no TF32): each lane an 8-row x 8-column tile over
 //   4-column chunks of the reduction, every operand a 16-byte shared load that
 //   lanes share, then a shuffle reduce and the warps' partial sums; it needs
@@ -72,15 +87,22 @@
 //   an SM. bf16: mma.sync.m16n8k16 with fp32 accumulators, eight n8 tiles a
 //   warp. Partial sums are added in a fixed order and nothing uses atomics,
 //   so reruns are bit-identical;
-// - the training mode, the keep gate and the groups a pass are template
-//   arguments, so the serving instantiation carries no residual store and no
-//   branch per element.
+// - the training mode, the keep gate, the groups a pass and the copies ahead
+//   are template arguments, so the serving instantiation carries no residual
+//   store and no branch per element.
 // What still bounds it (scripts/torch_probe_lstm.py times it with the product
 // or the h loads switched off; H100 at B = 32 and 256, T = 501, H = 496): at
 // the training shape the barrier, the gate math and the stores (about a third
 // of the step in fp32, 60% in bf16), then the product; at the serving shape
 // the fp32 product (two thirds of the step; the lane tile runs at ~60% of the
-// FMA rate), and in bf16 the fixed cost of eight groups' epilogues.
+// FMA rate), and in bf16 the fixed cost of eight groups' epilogues. At
+// DPRNN's H = 128 (2,048 rows, 16 groups a block, 8 fp32 passes of 2 groups
+// a step, 35 us; clock laps of one block's thread 0 on an H100) a pass
+// costs ~4.1 us: the product 1.75 (59% of the FMA rate), the epilogue's
+// gate math over 2 groups 1.0, issuing the next pass's copies 0.5, the
+// partial sums 0.3, the syncs 0.2; the barrier and the arrival ~1 us a step.
+// bf16 takes 2 passes of 8 groups, 14.5 us a step, the epilogue 3.3 us a
+// pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,15 +133,22 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroups = 16;      // row groups a block may own: 256 rows a launch
 constexpr int kPad = 8;             // h and U rows: (depth + 8) elements
 constexpr int kPartialBytes = kWarps * kRows * kCols * 4;
+// a row's staged xw_t, its 64 gate columns plus 16, so that two neighbouring
+// rows' 16 units of one gate fall in distinct banks
+constexpr int kXStride = kCols + 16;
 
 __host__ __device__ inline int padded_depth(int hidden) { return (hidden + 15) / 16 * 16; }
 
-// Dynamic shared memory: the warps' partial sums, h_{s-1} of a pass's groups,
-// then U's slice transposed when resident, [64][depth + 8].
+// Dynamic shared memory: the warps' partial sums, h_{s-1} of a pass's groups
+// (twice over when the next pass's copies run ahead), U's slice transposed
+// when resident, [64][depth + 8], and when ahead two buffers of a pass's
+// xw_t, [16 pass][80].
 template <typename T>
-__host__ __device__ inline size_t smem_bytes(int hidden, bool resident, int pass) {
+__host__ __device__ inline size_t smem_bytes(int hidden, bool resident, int pass, bool ahead) {
   const size_t kp = padded_depth(hidden);
-  return kPartialBytes + sizeof(T) * (kRows * pass + (resident ? kCols : 0)) * (kp + kPad);
+  const int h_rows = kRows * pass * (ahead ? 2 : 1);
+  const size_t x_elems = ahead ? 2 * kRows * pass * kXStride : 0;
+  return kPartialBytes + sizeof(T) * ((h_rows + (resident ? kCols : 0)) * (kp + kPad) + x_elems);
 }
 
 // Whether every row of h is 16-byte aligned (H a multiple of 4 fp32 or 8
@@ -234,6 +263,27 @@ __device__ __forceinline__ void stage_scalar(T* sa, int as, int srows, const T* 
     }
     sa[r * as + k] = v;
   }
+}
+
+// xw_t of a pass's `srows` rows for the block's 16 units, into
+// sx[row][gate * 16 + unit] (rows kXStride apart), every 16-byte copy in
+// flight at once (cp.async, one commit group): `src` is row 0's xw_t at
+// gate 0, unit 0, rows `stride` elements apart, 16-byte aligned with H a
+// multiple of 16 bytes' elements; zero past `nrows` and past H.
+template <typename T>
+__device__ __forceinline__ void stage_x(T* sx, int srows, const T* src, size_t stride, int nrows,
+                                        int hidden, int j0) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int per_row = kCols / V;  // 16-byte chunks of a row's 64 columns
+  for (int v = threadIdx.x; v < srows * per_row; v += kThreads) {
+    const int row = v / per_row;
+    const int c = (v % per_row) * V;  // gate c / 16, units c % 16 ..
+    const int q = c / kUnits;
+    const int jc = j0 + c % kUnits;
+    const bool ok = row < nrows && jc < hidden;
+    cp_async16(sx + row * kXStride + c, ok ? src + row * stride + q * hidden + jc : src, ok);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
 // fp32, U resident: lane (ks, rs, cq) = (lane % 2, lane / 2 % 2, lane / 4)
@@ -378,8 +428,11 @@ __device__ __forceinline__ void store_partials(float* partial, float (&acc)[32],
 // before the step. The launch covers batch rows row0 .. row0 + rows - 1 of
 // the B = `batch` rows; counters [D, row blocks] int32, zero at the launch.
 // Grid (unit slices, row blocks, D); a row block is `groups` groups of 16
-// rows, multiplied `pass` groups at a time.
-template <typename T, bool kTrain, bool kKeep, bool kResident, int kPass>
+// rows, multiplied `pass` groups at a time. kAhead (H a multiple of 16
+// bytes' elements): two buffers of a pass's h_{s-1} and xw_t, each pass's
+// copies started during the pass before it (the first pass's xw_t before
+// the step's barrier), and the gates' xw_t read from shared memory.
+template <typename T, bool kTrain, bool kKeep, bool kResident, int kPass, bool kAhead>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_persistent_kernel(const T* __restrict__ xw, const T* __restrict__ u, T* out,
                            T* __restrict__ gates_out, float* __restrict__ c_all,
@@ -392,7 +445,10 @@ lstm_fwd_persistent_kernel(const T* __restrict__ xw, const T* __restrict__ u, T*
   const int kp = padded_depth(hidden);
   const int as = kp + kPad;
   T* sa = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + kPartialBytes);
-  T* su = sa + srows * as;
+  T* su = sa + (kAhead ? 2 : 1) * srows * as;
+  T* sx = su + (kResident ? kCols * as : 0);
+  auto h_buf = [&](int pi) { return kAhead ? sa + (pi & 1) * srows * as : sa; };
+  auto x_buf = [&](int pi) { return sx + (pi & 1) * srows * kXStride; };
 
   const int d = blockIdx.z;
   const int dirs = gridDim.z;
@@ -441,8 +497,12 @@ lstm_fwd_persistent_kernel(const T* __restrict__ xw, const T* __restrict__ u, T*
   // reach past both; those rows stage as zeros)
   auto own_rows = [&](int g0) { return min(rows - first, groups * kRows) - g0 * kRows; };
   auto start_copies = [&](int pi, int t_prev) {
-    stage_start<T>(sa, as, srows, h_src(first + pi * srows, t_prev), h_stride,
+    stage_start<T>(h_buf(pi), as, srows, h_src(first + pi * srows, t_prev), h_stride,
                    own_rows(pi * pass), hidden, kp);
+  };
+  auto start_x = [&](int pi, int t) {
+    stage_x<T>(x_buf(pi), srows, xw + ((drow + first + pi * srows) * steps + t) * g4h,
+               static_cast<size_t>(steps) * g4h, own_rows(pi * pass), hidden, j0);
   };
 
   float cst[kMaxGroups];
@@ -452,9 +512,9 @@ lstm_fwd_persistent_kernel(const T* __restrict__ xw, const T* __restrict__ u, T*
   const int jj = threadIdx.x % kUnits;
   const int j = j0 + jj;
 
-  // xw_t and the keep value of (row, unit) in each group of a pass: loaded
-  // before the barrier (the first pass) or before the pass's product, so
-  // their latency overlaps the wait or the product.
+  // xw_t (unless staged ahead) and the keep value of (row, unit) in each
+  // group of a pass: loaded before the barrier (the first pass) or before the
+  // pass's product, so their latency overlaps the wait or the product.
   struct GateIn {
     float x[4];
     float k;
@@ -468,8 +528,9 @@ lstm_fwd_persistent_kernel(const T* __restrict__ xw, const T* __restrict__ u, T*
       const int b = first + (g0 + p) * kRows + r;
       if (g0 + p < groups && b < rows && j < hidden) {
         const T* x = xw + ((drow + b) * steps + t) * g4h;
+        if (!kAhead)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) in[p].x[q] = to_float(x[q * hidden + j]);
+          for (int q = 0; q < 4; ++q) in[p].x[q] = to_float(x[q * hidden + j]);
         if (kKeep) in[p].k = keep[(drow + b) * steps + step];
       }
     }
@@ -479,6 +540,7 @@ lstm_fwd_persistent_kernel(const T* __restrict__ xw, const T* __restrict__ u, T*
     const int t = rev ? steps - 1 - step : step;
     const int t_prev = rev ? t + 1 : t - 1;
     const bool product_step = step > 0;  // h_{-1} = 0: the first step is xw alone
+    if (kAhead) start_x(0, t);
     gate_inputs(0, step, t);
     if (product_step) {  // every block of this (direction, row block) has written step - 1
       if (threadIdx.x == 0) {
@@ -500,21 +562,39 @@ lstm_fwd_persistent_kernel(const T* __restrict__ xw, const T* __restrict__ u, T*
       const int b0 = first + g0 * kRows;
       if (b0 >= rows) break;
       if (g0 > 0) gate_inputs(g0, step, t);
-      if (product_step) {
+      T* sp = h_buf(pi);
+      if (kAhead) {  // this pass's copies were started a pass (or a barrier) ago
+        if (product_step && async)
+          stage_land<T, kKeep>(sp, as, srows, own_rows(g0), hidden, kp, keep_src(b0, step),
+                               steps);
+        else
+          asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();
+        // the next pass's, into the other buffers, whose last readers (the
+        // product and epilogue of the pass before) are behind the barrier
+        // above: they land during this pass's product and epilogue, so only
+        // the first pass of a step waits a round trip to L2 for h_{s-1}
+        if (g0 + pass < groups && b0 + pass * kRows < rows) {
+          start_x(pi + 1, t);
+          if (product_step && async) start_copies(pi + 1, t_prev);
+        }
+      } else if (product_step) {
         if (async) {
           if (pi > 0) start_copies(pi, t_prev);
-          stage_land<T, kKeep>(sa, as, srows, own_rows(g0), hidden, kp, keep_src(b0, step),
+          stage_land<T, kKeep>(sp, as, srows, own_rows(g0), hidden, kp, keep_src(b0, step),
                                steps);
         } else if (kLoads) {
-          stage_scalar<T, kKeep>(sa, as, srows, h_src(b0, t_prev), h_stride, own_rows(g0),
+          stage_scalar<T, kKeep>(sp, as, srows, h_src(b0, t_prev), h_stride, own_rows(g0),
                                  hidden, kp, keep_src(b0, step), steps);
         }
         __syncthreads();
+      }
+      if (product_step) {
         float acc[Elem<T>::kAcc];
 #pragma unroll
         for (int i = 0; i < Elem<T>::kAcc; ++i) acc[i] = 0.f;
         if (kProduct) {
-          const T* sg = sa + pg * kRows * as;
+          const T* sg = sp + pg * kRows * as;
           if constexpr (kResident)
             product_resident(sg, as, su, as, kp, acc, kw, wpg, lane);
           else
@@ -529,7 +609,11 @@ lstm_fwd_persistent_kernel(const T* __restrict__ xw, const T* __restrict__ u, T*
         const int g = g0 + p;
         const int bg = b0 + p * kRows;
         if (g >= groups || bg >= rows) break;
-        float z[4] = {in[p].x[0], in[p].x[1], in[p].x[2], in[p].x[3]};
+        float z[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          z[q] = kAhead ? to_float(x_buf(pi)[(p * kRows + r) * kXStride + q * kUnits + jj])
+                        : in[p].x[q];
         if (product_step) {
           float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -575,12 +659,12 @@ lstm_fwd_persistent_kernel(const T* __restrict__ xw, const T* __restrict__ u, T*
   }
 }
 
-template <typename T, bool kTrain, bool kKeep, bool kResident, int kPass>
+template <typename T, bool kTrain, bool kKeep, bool kResident, int kPass, bool kAhead>
 int launch(const void* xw, const void* u, void* out, void* gates, void* c_all, const void* keep,
            void* counters, int dirs, int batch, int row0, int rows, int steps, int hidden,
            int reverse_mask, int groups, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(hidden, kResident, kPass);
-  auto kernel = lstm_fwd_persistent_kernel<T, kTrain, kKeep, kResident, kPass>;
+  const size_t smem = smem_bytes<T>(hidden, kResident, kPass, kAhead);
+  auto kernel = lstm_fwd_persistent_kernel<T, kTrain, kKeep, kResident, kPass, kAhead>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -606,30 +690,40 @@ int launch(const void* xw, const void* u, void* out, void* gates, void* c_all, c
 
 // Groups multiplied in one pass (a power of two, from the launch plan, a
 // template argument): the eight warps split the reduction of each group's
-// product 8 / pass ways. fp32 takes one group a pass (its lane tile leaves no
-// registers for more inputs) and may stream U; bf16 keeps U resident (its
-// slice fits at every H <= 1024) and takes 1, 2, 4 or 8 groups a pass.
+// product 8 / pass ways. fp32 takes one or two groups a pass (its lane tile
+// leaves no registers for more inputs) and may stream U; bf16 keeps U
+// resident (its slice fits at every H <= 1024) and takes 1, 2, 4 or 8 groups
+// a pass. The plan runs the next pass's copies ahead (second h_{s-1} and
+// xw_t buffers) only with U resident, more than one group a pass (with one, the second
+// buffer's bytes would have held a pass of two) and rows of h and xw that
+// cp.async can copy 16 bytes at a time (H a multiple of 16 bytes' elements,
+// xw 16-byte aligned).
 template <typename T, bool kTrain, bool kKeep>
 int run(const void* xw, const void* u, void* out, void* gates, void* c_all, const void* keep,
         void* counters, int dirs, int batch, int row0, int rows, int steps, int hidden,
-        int reverse_mask, int groups, int pass, int resident, cudaStream_t stream) {
-#define SST_FWD_LAUNCH(RESIDENT, PASS)                                                            \
-  launch<T, kTrain, kKeep, RESIDENT, PASS>(xw, u, out, gates, c_all, keep, counters, dirs, batch, \
-                                           row0, rows, steps, hidden, reverse_mask, groups,       \
-                                           stream)
+        int reverse_mask, int groups, int pass, int resident, int ahead, cudaStream_t stream) {
+#define SST_FWD_LAUNCH(RESIDENT, PASS, AHEAD)                                                    \
+  launch<T, kTrain, kKeep, RESIDENT, PASS, AHEAD>(xw, u, out, gates, c_all, keep, counters, dirs, \
+                                                  batch, row0, rows, steps, hidden,              \
+                                                  reverse_mask, groups, stream)
+  if (ahead && (!resident || pass < 2 || hidden % (16 / sizeof(T)) ||
+                reinterpret_cast<uintptr_t>(xw) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (sizeof(T) == 4) {
     switch (pass) {
-      case 1: return resident ? SST_FWD_LAUNCH(true, 1) : SST_FWD_LAUNCH(false, 1);
-      case 2: return resident ? SST_FWD_LAUNCH(true, 2) : SST_FWD_LAUNCH(false, 2);
+      case 1: return resident ? SST_FWD_LAUNCH(true, 1, false) : SST_FWD_LAUNCH(false, 1, false);
+      case 2:
+        if (ahead) return SST_FWD_LAUNCH(true, 2, true);
+        return resident ? SST_FWD_LAUNCH(true, 2, false) : SST_FWD_LAUNCH(false, 2, false);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
     if (!resident) return static_cast<int>(cudaErrorInvalidValue);
     switch (pass) {
-      case 1: return SST_FWD_LAUNCH(true, 1);
-      case 2: return SST_FWD_LAUNCH(true, 2);
-      case 4: return SST_FWD_LAUNCH(true, 4);
-      case 8: return SST_FWD_LAUNCH(true, 8);
+      case 1: return SST_FWD_LAUNCH(true, 1, false);
+      case 2: return ahead ? SST_FWD_LAUNCH(true, 2, true) : SST_FWD_LAUNCH(true, 2, false);
+      case 4: return ahead ? SST_FWD_LAUNCH(true, 4, true) : SST_FWD_LAUNCH(true, 4, false);
+      case 8: return ahead ? SST_FWD_LAUNCH(true, 8, true) : SST_FWD_LAUNCH(true, 8, false);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -647,26 +741,27 @@ bool bad_plan(int dirs, int batch, int row0, int rows, int steps, int hidden, in
 // launch; out [B, T, D * H] is also where each step reads h_{s-1}.
 // counters [dirs, row blocks] int32 must hold zeros. bf16 != 0 selects
 // __nv_bfloat16 xw, u and out; otherwise fp32. groups (1 to 16 groups of 16
-// rows a block), pass (groups multiplied together: 1 in fp32, 1, 2, 4 or 8 in
-// bf16) and resident (U kept in shared memory) come from the caller's launch
-// plan; the shared memory a block takes follows from them (smem_bytes).
+// rows a block), pass (groups multiplied together: 1 or 2 in fp32, 1, 2, 4 or 8
+// in bf16), resident (U kept in shared memory) and ahead (the next pass's
+// h_{s-1} and xw_t copied during this pass) come from the caller's launch plan; the
+// shared memory a block takes follows from them (smem_bytes).
 // Returns the launch's error, cudaErrorInvalidValue for an inconsistent plan,
 // cudaErrorCooperativeLaunchTooLarge for a grid that cannot be resident at
 // once, or 0.
 extern "C" int sst_lstm_recurrence(const void* xw, const void* u, void* out, void* counters,
                                    int dirs, int batch, int row0, int rows, int steps, int hidden,
                                    int reverse_mask, int bf16, int groups, int pass, int resident,
-                                   void* stream) {
+                                   int ahead, void* stream) {
   if (bad_plan(dirs, batch, row0, rows, steps, hidden, groups))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return run<__nv_bfloat16, false, false>(xw, u, out, nullptr, nullptr, nullptr, counters, dirs,
                                             batch, row0, rows, steps, hidden, reverse_mask, groups,
-                                            pass, resident, s);
+                                            pass, resident, ahead, s);
   return run<float, false, false>(xw, u, out, nullptr, nullptr, nullptr, counters, dirs, batch,
                                   row0, rows, steps, hidden, reverse_mask, groups, pass, resident,
-                                  s);
+                                  ahead, s);
 }
 
 // The training forward: sst_lstm_recurrence plus the residuals gates
@@ -676,7 +771,7 @@ extern "C" int sst_lstm_train_forward(const void* xw, const void* u, void* out, 
                                       void* c_all, const void* keep, void* counters, int dirs,
                                       int batch, int row0, int rows, int steps, int hidden,
                                       int reverse_mask, int bf16, int groups, int pass,
-                                      int resident, void* stream) {
+                                      int resident, int ahead, void* stream) {
   if (bad_plan(dirs, batch, row0, rows, steps, hidden, groups))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -684,16 +779,16 @@ extern "C" int sst_lstm_train_forward(const void* xw, const void* u, void* out, 
     if (keep)
       return run<__nv_bfloat16, true, true>(xw, u, out, gates, c_all, keep, counters, dirs, batch,
                                             row0, rows, steps, hidden, reverse_mask, groups, pass,
-                                            resident, s);
+                                            resident, ahead, s);
     return run<__nv_bfloat16, true, false>(xw, u, out, gates, c_all, nullptr, counters, dirs,
                                            batch, row0, rows, steps, hidden, reverse_mask, groups,
-                                           pass, resident, s);
+                                           pass, resident, ahead, s);
   }
   if (keep)
     return run<float, true, true>(xw, u, out, gates, c_all, keep, counters, dirs, batch, row0,
                                   rows, steps, hidden, reverse_mask, groups, pass, resident,
-                                  s);
+                                  ahead, s);
   return run<float, true, false>(xw, u, out, gates, c_all, nullptr, counters, dirs, batch, row0,
-                                 rows, steps, hidden, reverse_mask, groups, pass, resident,
+                                 rows, steps, hidden, reverse_mask, groups, pass, resident, ahead,
                                  s);
 }

@@ -170,7 +170,8 @@ def _bound(atol, dtype, want):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, LSTM_ATOL), (torch.bfloat16, LSTM_BF16_ATOL)])
 @pytest.mark.parametrize("dirs,batch,steps,hidden", [
     (2, 32, 40, 496), (2, 256, 24, 496),  # the training and serving widths
-    (2, 300, 12, 496),  # two row slices, two launches a call
+    (2, 300, 12, 496),  # one launch of 10 groups a block
+    (2, 600, 12, 496),  # two row slices, two launches a call
     (1, 16, 40, 496), (2, 3, 37, 20), (2, 5, 19, 21),  # D = 1; ragged B and H (unaligned rows)
     (2, 40, 8, 1024),  # fp32 reads U through L1 from L2
     (2, 256, 16, 256),  # fp32: 4 groups a block, two a pass
@@ -179,7 +180,8 @@ def test_lstm_forward_kernels_match_plain(cuda_device, dtype, atol, dirs, batch,
     """The persistent forward, serving and training modes: within the plain
     version's bound, one launch a call per row slice, reruns bit-identical."""
     xw, u, k = _train_inputs(dirs, batch, steps, hidden, cuda_device, seed=31, keep=dirs == 2)
-    slices = -(-batch // 256)
+    slices = len(forward_plan(batch, hidden, dtype == torch.bfloat16, dirs,
+                              **_lstm_limits(cuda_device)).slices)
     for reverse in ([(False, True), (True, False)] if dirs == 2 else [(True,), (False,)]):
         before = lstm_recurrence.launches
         got = lstm_recurrence(xw, u, reverse=reverse, compute_dtype=dtype)
@@ -490,12 +492,14 @@ def _device_inputs(dirs, batch, steps, hidden, device, seed):
 @pytest.mark.parametrize("batch,steps", [(4_000, 641), (10_256, 250)])  # DPRNN's inter and intra rows
 def test_lstm_kernel_at_the_dual_path_shapes(cuda_device, dtype, atol, batch, steps):
     """Row 2 at H = 128 over a 16 x 10 s batch's BiLSTM rows (K = 250, S =
-    641): one launch a row slice of 256, within the plain loop's bound."""
+    641): one launch a row slice of the plan (2 and 6, of up to 2,048 rows),
+    within the plain loop's bound."""
     xw, u = _device_inputs(2, batch, steps, 128, cuda_device, seed=41)
+    plan = forward_plan(batch, 128, dtype == torch.bfloat16, 2, **_lstm_limits(cuda_device))
     before = lstm_recurrence.launches
     got = lstm_recurrence(xw, u, reverse=(False, True), compute_dtype=dtype)
     torch.cuda.synchronize()
-    assert lstm_recurrence.launches == before + -(-batch // 256)
+    assert lstm_recurrence.launches == before + len(plan.slices)
     want = lstm_recurrence_plain(xw, u, reverse=(False, True), compute_dtype=dtype)
     assert (got.float() - want.float()).abs().max().item() <= _bound(atol, dtype, [want])
 
@@ -503,7 +507,8 @@ def test_lstm_kernel_at_the_dual_path_shapes(cuda_device, dtype, atol, batch, st
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, TRAIN_ATOL), (torch.bfloat16, TRAIN_BF16_ATOL)])
 def test_lstm_train_kernels_at_the_dual_path_width(cuda_device, dtype, atol):
     """Rows 3 and 4 at H = 128 over 1,028 rows of 250 steps (a DPRNN training
-    batch's intra rows): five row slices each, within the plain loops' bound."""
+    batch's intra rows): the forward in its plan's launches (one), the
+    backward in five row slices of 256, within the plain loops' bound."""
     batch, steps, hidden = 1_028, 250, 128
     xw, u = _device_inputs(2, batch, steps, hidden, cuda_device, seed=43)
     before = (lstm_train_forward.launches, lstm_train_backward.launches)
@@ -523,7 +528,70 @@ def test_lstm_train_kernels_at_the_dual_path_width(cuda_device, dtype, atol):
     torch.cuda.synchronize()
     assert torch.equal(got_dg, again)
     assert (got_dg.float() - want_dg.float()).abs().max().item() <= _bound(atol, dtype, [want_dg])
-    assert (lstm_train_forward.launches - before[0], lstm_train_backward.launches - before[1]) == (5, 10)
+    plan = forward_plan(batch, hidden, dtype == torch.bfloat16, 2, **_lstm_limits(cuda_device))
+    launched = (lstm_train_forward.launches - before[0], lstm_train_backward.launches - before[1])
+    assert launched == (len(plan.slices), 2 * len(row_slices(batch)))
+
+
+@pytest.mark.parametrize("mode", ["serving", "training", "training with keep"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_forward_plan_equals_256_row_slices(cuda_device, dtype, mode):
+    """The plan's few full-grid launches (4,100 rows at H = 128: 1,376 +
+    1,376 + 1,348, 11 groups a block, the next pass's copies ahead) against
+    the same kernel in 256-row slices, one launch each, with as many groups
+    a pass: the same sums in the same order, so every output bit for bit."""
+    batch, steps, hidden = 4_100, 24, 128
+    bf16 = dtype == torch.bfloat16
+    limits = _lstm_limits(cuda_device)
+    plan = forward_plan(batch, hidden, bf16, 2, **limits)
+    assert len(plan.slices) == 3 and plan.slices[-1][1] % 16 and plan.ahead
+    small = forward_plan(256, hidden, bf16, 2, **limits)
+    groups = max(small.groups, plan.pass_groups)
+    sliced = dataclasses.replace(plan, groups=groups, row_blocks=-(-16 // groups), ahead=False,
+                                 slices=row_slices(batch))
+    xw, u, k = _train_inputs(2, batch, steps, hidden, cuda_device, seed=51,
+                             keep=mode == "training with keep")
+    xw, u = xw.to(dtype), u.to(dtype)
+    results = []
+    for p in (plan, sliced):
+        out = torch.empty(batch, steps, 2 * hidden, dtype=dtype, device=cuda_device)
+        if mode == "serving":
+            _forward_launch(lstm_recurrence, xw, u, out, 0b10, p)
+            results.append((out,))
+        else:
+            gates = torch.empty(2, batch, steps, 4 * hidden, dtype=dtype, device=cuda_device)
+            c_all = torch.empty(2, batch, steps, hidden, device=cuda_device)
+            _forward_launch(lstm_train_forward, xw, u, out, 0b10, p, gates=gates, c_all=c_all,
+                            keep=k)
+            results.append((out, gates, c_all))
+    torch.cuda.synchronize()
+    for got, want in zip(*results):
+        assert torch.equal(got, want)
+    if mode == "serving":  # and the first rows within the plain loop's bound
+        want = lstm_recurrence_plain(xw[:, :300], u, reverse=(False, True), compute_dtype=dtype)
+        atol = LSTM_ATOL if dtype == torch.float32 else LSTM_BF16_ATOL
+        got = results[0][0][:300].float()
+        assert (got - want.float()).abs().max().item() <= _bound(atol, dtype, [want])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_forward_misaligned_input_is_copied(cuda_device, dtype):
+    """xw two elements off 16-byte alignment (a view into a flat buffer)
+    under a plan that copies xw_t ahead 16 bytes at a time: the wrapper
+    copies it, and the outputs equal those of the aligned tensor bit for
+    bit."""
+    batch, steps, hidden = 600, 6, 128
+    xw, u, _ = _train_inputs(2, batch, steps, hidden, cuda_device, seed=53, keep=False)
+    xw, u = xw.to(dtype), u.to(dtype)
+    bf16 = dtype == torch.bfloat16
+    assert forward_plan(batch, hidden, bf16, 2, **_lstm_limits(cuda_device)).ahead
+    flat = torch.empty(xw.numel() + 2, dtype=dtype, device=cuda_device)
+    odd = flat[2:].view(xw.shape)
+    odd.copy_(xw)
+    assert odd.data_ptr() % 16
+    got = lstm_recurrence(odd, u, reverse=(False, True))
+    assert torch.equal(got, lstm_recurrence(xw, u, reverse=(False, True)))
+    assert torch.equal(lstm_train_forward(odd, u)[2], lstm_train_forward(xw, u)[2])
 
 
 @pytest.mark.parametrize("keep", [False, True])
@@ -585,9 +653,14 @@ def test_dprnn_module_matches_the_reference(cuda_device):
     for name, p in model.named_parameters():
         assert ((p.grad - grads[name]).norm() / grads[name].norm()).item() <= GRAD_REL, name
     # four BiLSTMs, served in row 2 and trained in rows 3 and 4: an intra one over
-    # 3 x 106 chunks in two row slices of 256, an inter one over 3 x 10 positions in one
+    # 3 x 106 chunks, an inter one over 3 x 10 positions; the forward in its plan's
+    # launches (one each), the backward in row slices of 256 (two, one)
+    forward = 2 * sum(len(forward_plan(rows, 16, False, 2, **_lstm_limits(cuda_device)).slices)
+                      for rows in (3 * 106, 3 * 10))
+    backward = 2 * sum(len(row_slices(rows)) for rows in (3 * 106, 3 * 10))
+    assert (forward, backward) == (4, 6)
     assert (lstm_recurrence.launches - before[0], lstm_train_forward.launches - before[1],
-            lstm_train_backward.launches - before[2]) == (6, 6, 6)
+            lstm_train_backward.launches - before[2]) == (forward, forward, backward)
     with pytest.raises(ValueError, match="H=1100"):  # the plan's own refusal, no fallback
         with torch.no_grad():
             DPRNN(**{**toy, "hidden": 1100}).to(cuda_device)(mix)
