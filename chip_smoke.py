@@ -129,7 +129,8 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    no plain loop; on one packed batch the kernel path's loss and four
    gradient groups against the plain path's, the packed loss against the
    sum over its utterances run alone, ``forward(segment_ids)`` (the training
-   forward kernel's keep mode) against ``train_forward`` and the plain path;
+   forward kernel's keep mode) against the forward under autograd and the
+   plain path;
    8 steps on one fixed batch must lower the loss;
 19. packed training timing at the JAX loader's defaults (16 rows x 16 s,
    1,001 frames): the train step, kernel path in fp32 and bf16 and plain
@@ -377,6 +378,17 @@ def keep_output(kept: pathlib.Path, tag: str, root: pathlib.Path, est: pathlib.P
     shutil.copytree(est, kept / tag / "est")
 
 
+def in_plain(fn):
+    """``fn`` run inside ``ops.plain_versions()``: every kernel's plain version."""
+    from speech_separation_tpu_torch.ops import plain_versions
+
+    def run(*args, **kwargs):
+        with plain_versions():
+            return fn(*args, **kwargs)
+
+    return run
+
+
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean device milliseconds of ``fn()`` over ``iters`` calls, after ``warmup``."""
     import torch
@@ -407,6 +419,7 @@ def main() -> int:
     from speech_separation_tpu_torch.models import blstm as blstm_module
     from speech_separation_tpu_torch.models.blstm import BiLSTM
     from speech_separation_tpu_torch.models.upit import UPitBlstm
+    from speech_separation_tpu_torch.ops import plain_versions
     from speech_separation_tpu_torch.ops.lstm_cuda import (
         _device_limits,
         forward_plan,
@@ -546,7 +559,8 @@ def main() -> int:
         batch = next(iter(WaveformLoader(split, batch_size=4)))
         mix = torch.from_numpy(batch.mix).to(device)
         lens = torch.from_numpy(batch.frame_lengths).to(device)
-        plain = make_separate_fn(model, plain=True)(mix, lens)
+        with plain_versions():
+            plain = make_separate_fn(model)(mix, lens)
         for tag, dt in runs.items():
             got = make_separate_fn(model, compute_dtype=dt)(mix, lens)
             if got.shape != plain.shape or not bool(torch.isfinite(got).all()):
@@ -566,9 +580,10 @@ def main() -> int:
     audio_s = BENCH_BATCH * BENCH_SECONDS
     path_ms = {}
     for tag, dt in runs.items():
+        fn = make_separate_fn(model, compute_dtype=dt)
         for kind in ("plain", "kernel", "kernel", "plain"):
-            fn = make_separate_fn(model, compute_dtype=dt, plain=kind == "plain")
-            path_ms.setdefault((tag, kind), []).append(cuda_ms(lambda: fn(mix, lens), iters=5))
+            with plain_versions(kind == "plain"):
+                path_ms.setdefault((tag, kind), []).append(cuda_ms(lambda: fn(mix, lens), iters=5))
     for (tag, kind), vals in path_ms.items():
         ms = min(vals)
         phase("timing", f"separate {tag} {kind} path, {BENCH_BATCH} x {BENCH_SECONDS:.0f} s: "
@@ -743,6 +758,7 @@ def tasnet_phases(device, gen, kept) -> dict:
     from speech_separation_tpu_torch.data.datasets import WaveformLoader
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
     from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply, fused_apply
+    from speech_separation_tpu_torch.ops import plain_versions
     from speech_separation_tpu_torch.ops.tcn_cuda import _device_limits as trunk_limits
     from speech_separation_tpu_torch.ops.tcn_cuda import (
         TRUNK_LAPS,
@@ -819,7 +835,8 @@ def tasnet_phases(device, gen, kept) -> dict:
         with torch.no_grad():
             ref = model(mix)
         got = cuda_apply(model, mix)
-        plain = cuda_apply(model, mix, plain=True)
+        with plain_versions():
+            plain = cuda_apply(model, mix)
         fused = fused_apply(model, mix, dtype=None)
         torch.cuda.synchronize()
         snrs = {"cuda_apply vs fp32 module": (snr_db(ref, got), SERVE_DB),
@@ -857,7 +874,7 @@ def tasnet_phases(device, gen, kept) -> dict:
         paths = {
             "module fp32": lambda: m(mix),
             "module bf16": lambda: m16(mix),
-            "cuda_apply plain trunk": lambda: cuda_apply(m, mix, plain=True),
+            "cuda_apply plain trunk": in_plain(lambda: cuda_apply(m, mix)),
             "cuda_apply": lambda: cuda_apply(m, mix),
         }
         times = {}
@@ -1087,6 +1104,7 @@ def tasnet_training_phases(device, gen, kept) -> list[dict]:
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
     from speech_separation_tpu_torch.losses import pit_si_sdr_loss
     from speech_separation_tpu_torch.models.tasnet_serving import train_apply
+    from speech_separation_tpu_torch.ops import plain_versions
     from speech_separation_tpu_torch.ops.tcn_cuda import (
         TRUNK_LAPS,
         fold_canonical,
@@ -1151,8 +1169,9 @@ def tasnet_training_phases(device, gen, kept) -> list[dict]:
         if kind in ("float64", "reference"):
             out = trunk_reference(*params, dils=dils)
         else:
-            out = tcn_trunk_train(*params, dils=dils, plain=kind == "fp32",
-                                  storage=torch.float32 if kind == "fp32" else torch.bfloat16)
+            with plain_versions(kind == "fp32"):
+                out = tcn_trunk_train(*params, dils=dils,
+                                      storage=torch.float32 if kind == "fp32" else torch.bfloat16)
         (out.to(dtype) * probe.to(dtype)).sum().backward()
         # the PReLU rows' lanes summed, as stack_canonical sums them
         g = [p.grad for p in params]
@@ -1215,7 +1234,8 @@ def tasnet_training_phases(device, gen, kept) -> list[dict]:
             cast = {n: p.to(torch.bfloat16) for n, p in net.named_parameters()}
             est = torch.func.functional_call(net, cast, (arrays[0],))
         else:
-            est = train_apply(net, arrays[0], plain=kind == "plain trunk")
+            with plain_versions(kind == "plain trunk"):
+                est = train_apply(net, arrays[0])
         loss = pit_si_sdr_loss(est.float(), arrays[1], arrays[2])
         loss.backward()
         flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).flatten()
@@ -1253,7 +1273,7 @@ def tasnet_training_phases(device, gen, kept) -> list[dict]:
                                          device=device))
     audio_s = TASNET_TRAIN_BATCH * TASNET_TRAIN_SECONDS
     settings = {"kernel path": dict(compute_dtype=torch.bfloat16, pallas_trunk=True),
-                "plain-trunk path": dict(compute_dtype=torch.bfloat16, pallas_trunk=True, plain=True),
+                "plain-trunk path": dict(compute_dtype=torch.bfloat16, pallas_trunk=True),
                 "module bf16": dict(compute_dtype=torch.bfloat16),
                 "module fp32": dict()}
     step_ms = {}
@@ -1262,7 +1282,8 @@ def tasnet_training_phases(device, gen, kept) -> list[dict]:
             net = full_width_tasnet(device)
             state = train_mod.TrainState.create(net, train_mod.adam(1e-3), seed=0)
             ts, _ = train_mod.make_time_domain_steps(net, **settings[what])
-            step_ms.setdefault(what, []).append(cuda_ms(lambda: ts(state, *batch), iters=3))
+            with plain_versions(what == "plain-trunk path"):
+                step_ms.setdefault(what, []).append(cuda_ms(lambda: ts(state, *batch), iters=3))
             del net, state, ts
     for what, vals in step_ms.items():
         ms = min(vals)
@@ -1447,6 +1468,7 @@ def codec_phases(device, gen) -> dict:
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
     from speech_separation_tpu_torch.losses import summed_squared_error
     from speech_separation_tpu_torch.models.vqvae import VqVaeT3Tok
+    from speech_separation_tpu_torch.ops import plain_versions
     from speech_separation_tpu_torch.ops.tcn_cuda import _device_limits
     from speech_separation_tpu_torch.ops.vq_cuda import nearest_code, nearest_code_plain, search_plan
     from speech_separation_tpu_torch.utils import VaeTrainConfig, load_config
@@ -1614,7 +1636,8 @@ def codec_phases(device, gen) -> dict:
         with torch.inference_mode():
             skip_lat, e3 = model._encode(x)
             kernel_codes = model.codes(x)
-            plain_codes = model.codes(x, plain=True)
+            with plain_versions():
+                plain_codes = model.codes(x)
             recon = {"kernel": model.decode_codes(*kernel_codes),
                      "plain": model.decode_codes(*plain_codes)}
         path_mismatch, path_gaps = 0, []
@@ -1659,10 +1682,10 @@ def codec_phases(device, gen) -> dict:
     with torch.inference_mode():
         codes_k = model.codes(audio)
         paths = {}
-        for kind in ("kernel", "plain"):
-            plain = kind == "plain"
-            paths[f"codes {kind}"] = lambda plain=plain: model.codes(audio, plain=plain)
-            paths[f"forward {kind}"] = lambda plain=plain: model(audio, deterministic=True, plain=plain)
+        paths["codes kernel"] = lambda: model.codes(audio)
+        paths["forward kernel"] = lambda: model(audio, deterministic=True)
+        paths["codes plain"] = in_plain(paths["codes kernel"])
+        paths["forward plain"] = in_plain(paths["forward kernel"])
         paths["decode_codes"] = lambda: model.decode_codes(*codes_k)
         times = {}
         for order in (list(paths), list(reversed(paths))):
@@ -1680,8 +1703,10 @@ def codec_phases(device, gen) -> dict:
     for kind in ("plain", "kernel", "kernel", "plain"):
         net = cli._build_vae_model(cfg, device)
         state = train_mod.TrainState.create(net, train_mod.nadam(1e-3), seed=0)
-        ts, _ = train_mod.make_vae_steps(net, stacked_loss, plain=kind == "plain")
-        step_ms.setdefault(kind, []).append(cuda_ms(lambda: ts(state, train_audio, targets), iters=5))
+        ts, _ = train_mod.make_vae_steps(net, stacked_loss)
+        with plain_versions(kind == "plain"):
+            step_ms.setdefault(kind, []).append(cuda_ms(lambda: ts(state, train_audio, targets),
+                                                        iters=5))
     for kind, vals in step_ms.items():
         ms = min(vals)
         phase("codec-timing", f"t3tok train step {kind} path, {CODEC_TRAIN_BATCH} x "
@@ -1789,8 +1814,8 @@ def training_phases(device, model, gen, kept) -> tuple[list[dict], dict]:
     from speech_separation_tpu_torch.data.datasets import WaveformLoader
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
     from speech_separation_tpu_torch.models import blstm as blstm_module
-    from speech_separation_tpu_torch.models import upit as upit_module
     from speech_separation_tpu_torch.models.upit import UPitBlstm
+    from speech_separation_tpu_torch.ops import plain_versions
     from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence
     from speech_separation_tpu_torch.ops.lstm_train_cuda import (
         bilstm_reference,
@@ -1911,7 +1936,7 @@ def training_phases(device, model, gen, kept) -> tuple[list[dict], dict]:
         for counter in counters:
             counter.launches = 0
         t0 = time.perf_counter()
-        with (counting_calls(upit_module, "bilstm_train") as fwd_calls,
+        with (counting_calls(blstm_module, "bilstm_train") as fwd_calls,
               counting_calls(blstm_module, "lstm_recurrence") as serve_calls):
             for tag, bf16 in (("fp32", False), ("bf16", True)):
                 cfg = tmp / f"cfg_{tag}.json"
@@ -1963,9 +1988,10 @@ def training_phases(device, model, gen, kept) -> tuple[list[dict], dict]:
         for kind in ("kernel", "plain"):
             net = UPitBlstm(dropout_rate=0.0, generator=torch.Generator().manual_seed(0)).to(device)
             state = train_mod.TrainState.create(net, train_mod.exponential_decay_adam(), seed=0)
-            ts, ev = train_mod.make_upit_waveform_steps(net, plain=kind == "plain")
-            step_losses[kind] = [ts(state, *arrays)[1].item() for _ in range(2)]
-            step_losses[kind].append(ev(state, *arrays).item())
+            ts, ev = train_mod.make_upit_waveform_steps(net)
+            with plain_versions(kind == "plain"):
+                step_losses[kind] = [ts(state, *arrays)[1].item() for _ in range(2)]
+                step_losses[kind].append(ev(state, *arrays).item())
         rel = max(abs(a - c) / abs(c) for a, c in zip(step_losses["kernel"], step_losses["plain"]))
         if not rel <= STEP_REL_TOL:
             raise AssertionError(f"train steps kernel vs plain: {step_losses} (rel {rel})")
@@ -1995,10 +2021,10 @@ def training_phases(device, model, gen, kept) -> tuple[list[dict], dict]:
         for kind in ("plain", "kernel", "kernel", "plain"):
             net = UPitBlstm(generator=torch.Generator().manual_seed(0)).to(device)
             state = train_mod.TrainState.create(net, train_mod.exponential_decay_adam(), seed=0)
-            ts, _ = train_mod.make_upit_waveform_steps(net, compute_dtype=dt,
-                                                      plain=kind == "plain")
-            step_ms.setdefault((tag, kind), []).append(
-                cuda_ms(lambda: ts(state, *arrays), iters=3))
+            ts, _ = train_mod.make_upit_waveform_steps(net, compute_dtype=dt)
+            with plain_versions(kind == "plain"):
+                step_ms.setdefault((tag, kind), []).append(
+                    cuda_ms(lambda: ts(state, *arrays), iters=3))
     for (tag, kind), vals in step_ms.items():
         ms = min(vals)
         phase("train-timing", f"train step {tag} {kind} path, {TRAIN_BATCH} x "
@@ -2138,9 +2164,9 @@ def packed_phases(device, kept, bucketed) -> dict:
     from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
     from speech_separation_tpu_torch.data.packing import PackedWaveformLoader
     from speech_separation_tpu_torch.losses.pit import pit_loss_packed
-    from speech_separation_tpu_torch.models import upit as upit_module
+    from speech_separation_tpu_torch.models import blstm as blstm_module
     from speech_separation_tpu_torch.models.upit import UPitBlstm
-    from speech_separation_tpu_torch.ops import lstm_train_cuda
+    from speech_separation_tpu_torch.ops import lstm_train_cuda, plain_versions
     from speech_separation_tpu_torch.ops.features import psm_features
     from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence
     from speech_separation_tpu_torch.ops.lstm_train_cuda import lstm_train_backward, lstm_train_forward
@@ -2156,7 +2182,8 @@ def packed_phases(device, kept, bucketed) -> dict:
             counter.launches = 0
         lstm_train_forward.keep_launches = lstm_train_backward.keep_launches = 0
         steps, t0 = 0, time.perf_counter()
-        with (counting_calls(upit_module, "bilstm_train") as calls,
+        with (counting_calls(blstm_module, "bilstm_train") as calls,
+              counting_calls(blstm_module, "lstm_train_forward") as evals,
               counting_calls(lstm_train_cuda, "lstm_train_forward_plain") as fwd_plain,
               counting_calls(lstm_train_cuda, "lstm_train_backward_plain") as bwd_plain):
             for tag, bf16 in (("fp32", False), ("bf16", True)):
@@ -2183,21 +2210,22 @@ def packed_phases(device, kept, bucketed) -> dict:
         seconds = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
         keep = {c.__name__: c.keep_launches for c in (lstm_train_forward, lstm_train_backward)}
-        # every training forward a keep-mode launch (rows <= 256: one row slice),
-        # 3 keep-mode backward launches a train step, no launch without the gate
-        # and no plain loop
-        if not (min(launches.values()) > 0 and keep["lstm_train_forward"] == calls[0]
+        # every training forward (bilstm_train under autograd, the keep-mode
+        # forward alone in the eval epochs) a keep-mode launch (rows <= 256: one
+        # row slice), 3 keep-mode backward launches a train step, no launch
+        # without the gate and no plain loop
+        if not (min(launches.values()) > 0 and keep["lstm_train_forward"] == calls[0] + evals[0]
                 == launches["lstm_train_forward"] and keep["lstm_train_backward"] == 3 * steps
                 == launches["lstm_train_backward"] and fwd_plain[0] == bwd_plain[0] == 0):
             raise AssertionError(f"packed path: launches {launches}, keep-mode {keep}, "
-                                 f"{calls[0]} bilstm_train calls, {steps} train steps, plain "
-                                 f"loops {fwd_plain[0]} + {bwd_plain[0]}")
+                                 f"{calls[0]} bilstm_train calls, {evals[0]} eval forwards, "
+                                 f"{steps} train steps, plain loops {fwd_plain[0]} + {bwd_plain[0]}")
         if len(list(out.glob("*.wav"))) != 16:
             raise AssertionError(f"cli separate wrote {len(list(out.glob('*.wav')))} wavs for 8")
         phase("packed-train", f"cli train pack=true fp32 + bf16 ({steps} steps) and cli separate "
               f"--checkpoint-dir (16 wavs) in {seconds:.1f} s; launches {launches}; keep-mode "
-              f"{keep} ({calls[0]} bilstm_train calls: 3 forward and 3 backward a step); no plain "
-              f"loop")
+              f"{keep} ({calls[0]} bilstm_train calls: 3 forward and 3 backward a step; "
+              f"{evals[0]} eval forwards); no plain loop")
         keep_output(kept, "phase 18 packed BLSTM cli train fp32 + separate", root, out)
 
         loader = PackedWaveformLoader(root / "tr", rows_per_batch=2, row_seconds=PACK_ROW_SECONDS)
@@ -2216,10 +2244,11 @@ def packed_phases(device, kept, bucketed) -> dict:
 
     def loss_and_grads(plain):
         model = net()
-        feats = psm_features(mix, sources, plain=plain)
-        preds = model.train_forward(feats.magnitude, segment_ids=seg, plain=plain)
-        loss = pit_loss_packed(preds, feats.labels, seg, num_segments=loader.num_segments)
-        loss.backward()
+        with plain_versions(plain):
+            feats = psm_features(mix, sources)
+            preds = model(feats.magnitude, segment_ids=seg)
+            loss = pit_loss_packed(preds, feats.labels, seg, num_segments=loader.num_segments)
+            loss.backward()
         grads = {g: torch.cat([p.grad.flatten() for n, p in model.named_parameters()
                                if any(k in n for k in keys)]) for g, keys in groups.items()}
         return loss.item(), grads
@@ -2255,17 +2284,19 @@ def packed_phases(device, kept, bucketed) -> dict:
         before = lstm_train_forward.keep_launches
         served = model(feats.magnitude, segment_ids=seg)
         served_launches = lstm_train_forward.keep_launches - before
-        trained = model.train_forward(feats.magnitude, segment_ids=seg)
-        plain = model(feats.magnitude, segment_ids=seg, plain=True)
+        with plain_versions():
+            plain = model(feats.magnitude, segment_ids=seg)
+    trained = model(feats.magnitude, segment_ids=seg).detach()  # under autograd
     serve_rel = max(((served - w).norm() / w.norm()).item() for w in (trained, plain))
     if not (sum_rel <= PACKED_SUM_REL and served_launches == 3 and serve_rel <= PATH_REL_TOL):
         raise AssertionError(f"packed loss {packed_loss} vs the utterances alone {alone} (rel "
                              f"{sum_rel}); forward(segment_ids): {served_launches} keep-mode "
-                             f"launches, rel L2 {serve_rel} against train_forward and plain")
+                             f"launches, rel L2 {serve_rel} against autograd's forward and plain")
     phase("packed-train", f"fp32 kernel path: packed loss {packed_loss:.4f} = the sum over its "
           f"{len(singles)} utterances run alone {alone:.4f} (rel {sum_rel:.1e} <= {PACKED_SUM_REL}); "
           f"forward(segment_ids) under no_grad: 3 keep-mode training-forward launches, rel L2 "
-          f"{serve_rel:.1e} <= {PATH_REL_TOL} against train_forward and the plain path")
+          f"{serve_rel:.1e} <= {PATH_REL_TOL} against the forward under autograd and the plain "
+          f"path")
 
     model = net(dropout=0.8)
     state = train_mod.TrainState.create(model, train_mod.exponential_decay_adam(), seed=0)
@@ -2293,9 +2324,10 @@ def packed_phases(device, kept, bucketed) -> dict:
             model = net(dropout=0.8)
             state = train_mod.TrainState.create(model, train_mod.exponential_decay_adam(), seed=0)
             ts, _ = train_mod.make_upit_packed_steps(model, num_segments=loader.num_segments,
-                                                     compute_dtype=dt, plain=kind == "plain")
-            step_ms.setdefault((tag, kind), []).append(
-                cuda_ms(lambda: ts(state, *arrays), iters=3 if kind == "kernel" else 2))
+                                                     compute_dtype=dt)
+            with plain_versions(kind == "plain"):
+                step_ms.setdefault((tag, kind), []).append(
+                    cuda_ms(lambda: ts(state, *arrays), iters=3 if kind == "kernel" else 2))
     rates = {}
     for (tag, kind), vals in step_ms.items():
         ms = min(vals)
@@ -2563,7 +2595,7 @@ def window_streaming_phases(device, gen, kept) -> dict:
         return apply
 
     paths = {"cuda_apply": on_device(lambda m: cuda_apply(model, m)),
-             "cuda_apply plain trunk": on_device(lambda m: cuda_apply(model, m, plain=True)),
+             "cuda_apply plain trunk": in_plain(on_device(lambda m: cuda_apply(model, m))),
              "module bf16": on_device(m16)}
     report, stream_launches = {}, 0
     for hop_s, ctx_s in STREAM_PAIRS:

@@ -6,9 +6,12 @@ Parameters keep the JAX package's Keras layout: ``kernel [F, 4H]``,
 kernel, orthogonal recurrent kernel, drawn from an explicit
 ``torch.Generator``.
 
-The input projection ``x @ W + b`` of every timestep is one ``torch.matmul``;
-the recurrence runs in ``ops/lstm_cuda.py`` (the CUDA kernel on a GPU tensor,
-its plain loop on the CPU, or the plain loop anywhere with ``plain=True``).
+:class:`BiLSTM` is the one place that chooses a recurrence. With gradients
+on, it is the differentiable ``ops/lstm_train_cuda.py::bilstm_train``
+(kernel table rows 3 and 4). With gradients off (serving), the input
+projection ``x @ W + b`` of every timestep is one ``torch.baddbmm`` and the
+recurrence runs in ``ops/lstm_cuda.py::lstm_recurrence`` (row 2). Each op
+takes the kernel or its plain loop as ``ops.dispatch.use_plain`` says.
 
 Like the JAX layers, padded timesteps are processed as ordinary inputs, and
 the backward direction runs over the whole padded length.
@@ -16,9 +19,9 @@ the backward direction runs over the whole padded length.
 Sequence-packed rows (``data/packing.py``) pass ``segment_ids [B, T]``: the
 carry is reset wherever the segment changes, in each direction's own scan
 order (:func:`segment_keeps`), so each packed utterance runs as if alone. The
-serving kernel has no carry gate, so a packed forward runs the training
-forward kernel (``lstm_train_forward``) in its keep mode and keeps only its
-hidden states; it is not differentiable (serve it under ``torch.no_grad``).
+serving kernel has no carry gate, so a packed forward with gradients off runs
+the training forward kernel (``lstm_train_forward``) in its keep mode and
+keeps only its hidden states.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.lstm_cuda import lstm_recurrence, lstm_recurrence_plain
-from ..ops.lstm_train_cuda import lstm_train_forward, lstm_train_forward_plain
+from ..ops.lstm_cuda import lstm_recurrence
+from ..ops.lstm_train_cuda import bilstm_train, lstm_train_forward
 
 __all__ = ["LSTM", "BiLSTM", "segment_keep", "segment_keeps"]
 
@@ -82,10 +85,10 @@ class LSTM(nn.Module):
                 nn.init.orthogonal_(recurrents[d], generator=generator)
             self.bias[..., features : 2 * features] = 1.0
 
-    def forward(self, x: torch.Tensor, *, keep: torch.Tensor | None = None,
-                plain: bool = False) -> torch.Tensor:
-        """``keep [2, B, T]`` (two directions only): the carry gate of packed
-        rows, run through the training forward kernel (no gradient)."""
+    def forward(self, x: torch.Tensor, *, keep: torch.Tensor | None = None) -> torch.Tensor:
+        """The serving recurrence, not differentiable on a GPU. ``keep [2, B,
+        T]`` (two directions only): the carry gate of packed rows, run through
+        the training forward kernel."""
         b, t, f = x.shape
         dirs, h4 = self.directions, 4 * self.features
         # one GEMM per direction over every timestep, bias fused: [D, B, T, 4H]
@@ -96,14 +99,13 @@ class LSTM(nn.Module):
         ).view(dirs, b, t, h4)
         recurrent = self.recurrent_kernel.view(dirs, self.features, h4)
         if keep is not None:
-            run = lstm_train_forward_plain if plain else lstm_train_forward
-            return run(xw, recurrent, keep=keep)[0]
-        run = lstm_recurrence_plain if plain else lstm_recurrence
-        return run(xw, recurrent, reverse=tuple(d == 1 for d in range(dirs)))
+            return lstm_train_forward(xw, recurrent, keep=keep)[0]
+        return lstm_recurrence(xw, recurrent, reverse=tuple(d == 1 for d in range(dirs)))
 
 
 class BiLSTM(nn.Module):
-    """Bidirectional LSTM with concatenated outputs: ``[B, T, 2 * features]``."""
+    """Bidirectional LSTM with concatenated outputs: ``[B, T, 2 * features]``
+    in the parameters' dtype, differentiable wherever gradients are on."""
 
     def __init__(
         self, input_size: int, features: int, *, generator: torch.Generator | None = None
@@ -111,7 +113,10 @@ class BiLSTM(nn.Module):
         super().__init__()
         self.cells = LSTM(input_size, features, directions=2, generator=generator)
 
-    def forward(self, x: torch.Tensor, segment_ids: torch.Tensor | None = None, *,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+        cells = self.cells
         keep = None if segment_ids is None else segment_keeps(segment_ids)
-        return self.cells(x, keep=keep, plain=plain)
+        if torch.is_grad_enabled():
+            return bilstm_train(x, cells.kernel, cells.recurrent_kernel, cells.bias, keep=keep,
+                                compute_dtype=cells.kernel.dtype)
+        return cells(x, keep=keep)

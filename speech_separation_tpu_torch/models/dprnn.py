@@ -17,12 +17,11 @@ separation", ICASSP 2020, arXiv:1910.06379). The port has no JAX counterpart.
   features;
 - decoder: ``tasnet.decode``, one shared transposed conv a speaker.
 
-The BiLSTMs are ``models/blstm.py::BiLSTM``. With gradients off (serving)
-each runs its recurrence in ``lstm_recurrence`` (kernel table row 2) on a
-CUDA tensor and its plain loop on the CPU; with gradients on, in
-``ops/lstm_train_cuda.py::bilstm_train`` (rows 3 and 4). A width that the
-kernels' launch plans cannot take is refused by the plan's own
-``ValueError``; there is no fallback.
+The BiLSTMs are ``models/blstm.py::BiLSTM``, which chooses the recurrence:
+the serving kernel (kernel table row 2) with gradients off, the training
+kernels (rows 3 and 4) with them on. A width that the kernels'
+launch plans cannot take is refused by the plan's own ``ValueError``; there
+is no fallback.
 
 Departures from the paper: the encoder and decoder pad "SAME" as the port's
 Conv-TasNet does; each LSTM has one bias a gate (Keras's layout); gLN sees the
@@ -44,7 +43,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.lstm_train_cuda import bilstm_train
 from ..utils.profiling import span
 from .blstm import BiLSTM
 from .tasnet import _Conv, _Norm, _PReLU, decode, encode
@@ -87,13 +85,7 @@ class _DualPathBlock(nn.Module):
 
     def _half(self, part: str, x: torch.Tensor) -> torch.Tensor:
         """One half over rows ``x [R, L, N]``: BiLSTM, Linear, ``[R, L, N]``."""
-        rnn = getattr(self, f"{part}_rnn")
-        if torch.is_grad_enabled():
-            cells = rnn.cells
-            y = bilstm_train(x, cells.kernel, cells.recurrent_kernel, cells.bias,
-                             compute_dtype=cells.kernel.dtype)
-        else:
-            y = rnn(x)
+        y = getattr(self, f"{part}_rnn")(x)
         return getattr(self, f"{part}_proj").pointwise(y)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, K, N]
@@ -164,7 +156,7 @@ class DPRNN(nn.Module):
 
 def serving_fn(model: DPRNN, *, bf16: bool = False):
     """``serve(mix [B, samples]) -> fp32 [B, S, samples]`` under inference
-    mode: the module's forward (its recurrences in ``lstm_recurrence`` on a
+    mode: the module's forward (its recurrences in the serving kernel on a
     GPU), on a bf16 copy of the module where ``bf16`` (norm statistics fp32).
     ``cli separate`` serves a ``dprnn`` checkpoint through it."""
     net = (copy.deepcopy(model).to(torch.bfloat16) if bf16 else model).eval()

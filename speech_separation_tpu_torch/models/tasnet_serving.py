@@ -36,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.tcn_cuda import stack_canonical, stack_tcn_weights, tcn_trunk_cuda, tcn_trunk_plain
+from ..ops.tcn_cuda import stack_canonical, stack_tcn_weights, tcn_trunk_cuda
 from ..ops.tcn_train_cuda import tcn_trunk_train
 from ..utils.profiling import span
 from .tasnet import ConvTasNet, decode, depthwise, encode
@@ -182,20 +182,19 @@ def fused_apply(model: ConvTasNet, mix: torch.Tensor, *, dtype: torch.dtype | No
 
 
 @torch.no_grad()
-def cuda_apply(model: ConvTasNet, mix: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+def cuda_apply(model: ConvTasNet, mix: torch.Tensor) -> torch.Tensor:
     """``ConvTasNet`` forward with the TCN trunk in the ``tcn_trunk`` kernel
     (bf16, the kernel's precision contract): ``mix [B, samples]`` (a multiple
-    of ``win // 2``) → fp32 ``[B, S, samples]``. ``plain=True`` runs the
-    trunk's plain version instead, on any device: the reference a GPU run is
-    compared with. The weights come from :func:`_serving`'s cache. Raises on
-    a causal model."""
+    of ``win // 2``) → fp32 ``[B, S, samples]``; inside
+    ``ops.plain_versions()`` the trunk's plain version, the reference a GPU
+    run is compared with. The weights come from :func:`_serving`'s cache.
+    Raises on a causal model."""
     _check_mix(model, mix)
     dt = torch.bfloat16
     with span("tasnet.weights"):
         w = _serving(model)
     feats, h = _encode_and_project(w.p, w.head, mix, model.win, dt)
-    trunk = tcn_trunk_plain if plain else tcn_trunk_cuda
-    skip_sum = trunk(h, *w.stacks, dils=w.dils, taps=model.kernel)
+    skip_sum = tcn_trunk_cuda(h, *w.stacks, dils=w.dils, taps=model.kernel)
     return _mask_and_decode(w.p, w.head, feats, skip_sum, model.num_speakers, model.enc_dim,
                             model.win, mix.shape[1], dt)
 
@@ -269,18 +268,18 @@ def _dilations(model: ConvTasNet) -> tuple[int, ...]:
     return tuple(2**x for _ in range(model.repeats) for x in range(model.blocks))
 
 
-def train_apply(model: ConvTasNet, mix: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+def train_apply(model: ConvTasNet, mix: torch.Tensor) -> torch.Tensor:
     """``ConvTasNet`` forward for training, differentiable in the module's
     parameters, with the TCN trunk in the training kernels (bf16, the
     kernels' contract): ``mix [B, samples]`` (a multiple of ``win // 2``) →
-    fp32 ``[B, S, samples]``. ``plain=True`` runs the trunk's plain versions
-    on any device. Raises on a causal model."""
+    fp32 ``[B, S, samples]``; inside ``ops.plain_versions()`` the trunk's
+    plain versions. Raises on a causal model."""
     _check_mix(model, mix)
     dt = torch.bfloat16
     p = _params(model, live=True)
     head = _head(p, dt)
     feats, h = _encode_and_project(p, head, mix, model.win, dt)
     arrays = stack_canonical(p, blocks=model.blocks, repeats=model.repeats)
-    skip_sum = tcn_trunk_train(h, *arrays, dils=_dilations(model), taps=model.kernel, plain=plain)
+    skip_sum = tcn_trunk_train(h, *arrays, dils=_dilations(model), taps=model.kernel)
     return _mask_and_decode(p, head, feats, skip_sum, model.num_speakers, model.enc_dim,
                             model.win, mix.shape[1], dt)

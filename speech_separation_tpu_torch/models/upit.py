@@ -3,16 +3,17 @@
 :class:`UPitBlstm` is the spectral-domain baseline: magnitude in,
 ``Dense(496, tanh)``, 3 × (BiLSTM(496) + Dropout 0.8), one ReLU mask head per
 speaker, each mask multiplied with the input magnitude, heads concatenated on
-the feature axis → ``[B, T, num_speakers * output_size]``. ``forward`` serves
-(dropout is identity in eval); ``train_forward`` is the differentiable
-training forward, whose BiLSTM recurrences run through the training kernels
-of ``ops/lstm_train_cuda.py``.
+the feature axis → ``[B, T, num_speakers * output_size]``. One ``forward``
+serves and trains: each ``BiLSTM`` runs the serving recurrence with
+gradients off and the differentiable training recurrence with them on, and
+dropout runs only when a ``generator`` is given.
 
 Submodules carry the JAX parameter tree's names (``input_proj``,
 ``bilstm_{i}.cells``, ``heads.mask_head_{s}``) and layouts (``Dense`` kernels
 are ``[in, out]``), so ``weights.upit_blstm_state_dict`` is a pure rename.
-The network computes in its parameters' dtype: cast the module (``.to``) to
-run it in bf16, as the JAX pipeline casts its parameter tree.
+The network computes in its parameters' dtype: cast the module (``.to``), or
+call it on cast parameters (``torch.func.functional_call``), to run it in
+bf16, as the JAX pipeline casts its parameter tree.
 """
 
 from __future__ import annotations
@@ -22,8 +23,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.lstm_train_cuda import bilstm_train
-from .blstm import BiLSTM, segment_keeps
+from .blstm import BiLSTM
 
 __all__ = ["Dense", "UPitBlstm", "dropout"]
 
@@ -98,70 +98,22 @@ class UPitBlstm(nn.Module):
         magnitude: torch.Tensor,
         *,
         segment_ids: torch.Tensor | None = None,
-        plain: bool = False,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """``[B, T, input_size]`` → ``[B, T, num_speakers * output_size]`` in the
-        parameters' dtype. ``plain=True`` runs the recurrences' plain loop
-        instead of the CUDA kernel (the reference path on a GPU).
-        ``segment_ids [B, T]``: sequence-packed rows, each utterance isolated
-        (the recurrences then run the training forward kernel in its keep
-        mode; serve under ``torch.no_grad``)."""
+        parameters' dtype, serving or, with gradients on, training (the JAX
+        package's module and its training forward). ``generator=None``
+        disables dropout (eval); otherwise dropout at ``dropout_rate`` follows
+        every BiLSTM layer, with bits from ``generator``, not JAX's stream.
+        ``segment_ids [B, T]``: sequence-packed rows (``data/packing.py``),
+        each utterance isolated by the recurrences' carry gate."""
         x = magnitude.to(self.input_proj.kernel.dtype)
         h = torch.tanh(self.input_proj(x))
         for i in range(self.num_layers):
-            h = getattr(self, f"bilstm_{i}")(h, segment_ids, plain=plain)
-        return self.heads(h, x)
-
-    def train_forward(
-        self,
-        magnitude: torch.Tensor,
-        *,
-        generator: torch.Generator | None = None,
-        compute_dtype: torch.dtype | None = None,
-        segment_ids: torch.Tensor | None = None,
-        plain: bool = False,
-    ) -> torch.Tensor:
-        """Differentiable training forward (counterpart of
-        ``upit_blstm_train_forward``): ``[B, T, input_size]`` → fp32
-        ``[B, T, num_speakers * output_size]``.
-
-        The fp32 master parameters are cast to ``compute_dtype`` (default
-        fp32) differentiably, so they receive fp32 gradients of the cast. Each
-        BiLSTM layer is :func:`~..ops.lstm_train_cuda.bilstm_train`, whose
-        forward and backward recurrences are CUDA kernels (their plain loops
-        on the CPU or with ``plain=True``). ``generator=None`` disables
-        dropout (eval); otherwise dropout at ``dropout_rate`` follows every
-        BiLSTM layer, with bits from ``generator``, not JAX's stream.
-        ``segment_ids [B, T]`` (sequence-packed rows, ``data/packing.py``)
-        runs every recurrence with the carry gate of
-        :func:`~.blstm.segment_keeps`, built on the ids' device.
-        """
-        dtype = compute_dtype or torch.float32
-        keep = None if segment_ids is None else segment_keeps(segment_ids)
-        p = {name: value.to(dtype) for name, value in self.named_parameters()}
-
-        def dense(prefix: str, x: torch.Tensor) -> torch.Tensor:
-            return x @ p[f"{prefix}.kernel"] + p[f"{prefix}.bias"]
-
-        x = magnitude.to(dtype)
-        h = torch.tanh(dense("input_proj", x))
-        for layer in range(self.num_layers):
-            cells = f"bilstm_{layer}.cells"
-            h = bilstm_train(
-                h,
-                p[f"{cells}.kernel"],
-                p[f"{cells}.recurrent_kernel"],
-                p[f"{cells}.bias"],
-                keep=keep,
-                compute_dtype=dtype,
-                plain=plain,
-            ).to(dtype)
+            h = getattr(self, f"bilstm_{i}")(h, segment_ids)
             if generator is not None and self.dropout_rate > 0.0:
                 h = dropout(h, self.dropout_rate, generator)
-        outs = [
-            torch.relu(dense(f"heads.mask_head_{s}", h)) * x for s in range(self.num_speakers)
-        ]
-        return torch.cat(outs, dim=-1).to(torch.float32)
+        return self.heads(h, x)
 
 
 def dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:

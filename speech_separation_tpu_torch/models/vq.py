@@ -13,7 +13,7 @@ sampling and codebook vector quantization.
 
 Every nearest-code search goes through :func:`nearest_code_indices`, which
 launches the ``nearest_code`` CUDA kernel on a GPU tensor (its plain version
-on a CPU tensor, or with ``plain=True``): one launch a residual stage, every
+where ``ops.dispatch.use_plain`` says): one launch a residual stage, every
 product-quantisation group of it in one grouped call that reads the
 residual's column slices in place. The JAX flag ``use_pallas`` is not carried
 over: both of its branches compute the same function.
@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.vq_cuda import nearest_code, nearest_code_plain
+from ..ops.vq_cuda import nearest_code
 
 __all__ = [
     "gumbel_softmax",
@@ -76,17 +76,13 @@ class GumbelSoftmax(nn.Module):
         return gumbel_softmax(logits, generator, tau, self.hard)
 
 
-def nearest_code_indices(
-    flat: torch.Tensor, codebook: torch.Tensor, plain: bool = False
-) -> torch.Tensor:
+def nearest_code_indices(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """``argmin_k ‖flat_n − codebook[:, k]‖²`` for ``flat [N, D]``,
     ``codebook [D, K]``: int32 ``[N]``; for ``flat [N, G·S]``, ``codebook
     [G, S, K]`` the same per group of ``S`` columns: int32 ``[N, G]``. Through
-    the ``nearest_code`` kernel (``plain=True``: its plain version, on any
-    device); ``flat`` is copied only where its columns are not contiguous."""
+    the ``nearest_code`` kernel (or its plain version); ``flat`` is copied
+    only where its columns are not contiguous."""
     flat, codebook = flat.detach(), codebook.detach()
-    if plain:
-        return nearest_code_plain(flat, codebook)
     if flat.stride(-1) != 1 or flat.stride(0) < flat.shape[-1]:
         flat = flat.contiguous()
     return nearest_code(flat, codebook.contiguous())
@@ -122,9 +118,9 @@ class VectorQuantizer(nn.Module):
         self.embeddings = nn.Parameter(torch.empty(embedding_dim, num_embeddings))
         _uniform_(self.embeddings, init_scale, generator)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         flat = x.reshape(-1, self.embedding_dim)
-        indices = nearest_code_indices(flat, self.embeddings, plain)
+        indices = nearest_code_indices(flat, self.embeddings)
         quantized = self.lookup(self.embeddings, indices).reshape(x.shape)
         aux = _aux_loss(quantized, x, self.beta)
         return x + (quantized - x).detach(), aux
@@ -165,35 +161,33 @@ class ResidualVectorQuantizer(nn.Module):
     def num_streams(self) -> int:
         return self.depth * self.pq
 
-    def _quantize_stage(
-        self, residual: torch.Tensor, d: int, plain: bool
-    ) -> tuple[torch.Tensor, torch.Tensor]:
+    def _quantize_stage(self, residual: torch.Tensor, d: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Nearest codes per sub-vector, one grouped search for the stage:
         ``[N, D]`` → (q ``[N, D]``, indices ``[N, pq]``)."""
-        indices = nearest_code_indices(residual, self.embeddings[d], plain)
+        indices = nearest_code_indices(residual, self.embeddings[d])
         parts = [self.embeddings[d, g].T[indices[:, g]] for g in range(self.pq)]
         return torch.cat(parts, dim=1), indices
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         flat = x.reshape(-1, self.embedding_dim)
         residual = flat
         q_sum = torch.zeros_like(flat)
         aux = flat.new_zeros(())
         for d in range(self.depth):
-            q_d, _ = self._quantize_stage(residual.detach(), d, plain)
+            q_d, _ = self._quantize_stage(residual.detach(), d)
             aux = aux + _aux_loss(q_d, residual, self.beta)
             residual = residual - q_d.detach()
             q_sum = q_sum + q_d.detach()
         out = flat + (q_sum - flat).detach()  # straight-through
         return out.reshape(x.shape), aux
 
-    def codes(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def codes(self, x: torch.Tensor) -> torch.Tensor:
         """Indices ``[..., depth · pq]`` (stage-major) for latents ``[..., D]``."""
         flat = x.reshape(-1, self.embedding_dim)
         residual = flat
         out = []
         for d in range(self.depth):
-            q_d, idx = self._quantize_stage(residual, d, plain)
+            q_d, idx = self._quantize_stage(residual, d)
             out.append(idx)
             residual = residual - q_d
         return torch.cat(out, dim=-1).reshape(*x.shape[:-1], self.num_streams)

@@ -14,10 +14,10 @@ aux_losses)`` so one train step applies ``loss + sum(aux_losses)``:
 
 ``codes`` / ``decode_codes`` expose a model as a tokenizer where JAX's does.
 Every nearest-code search runs the ``nearest_code`` CUDA kernel on a GPU
-(``plain=True``: its plain version). Submodules carry the flax names and
-layouts (Conv and ConvTranspose kernels ``[width, in, out]``, Dense kernels
-``[in, out]``), so ``weights.vqvae_state_dict`` is a rename; activations are
-channels-last ``[B, T, C]``. flax's "SAME" padding with an even kernel is
+(its plain version where ``ops.dispatch.use_plain`` says). Submodules carry
+the flax names and layouts (Conv and ConvTranspose kernels ``[width, in,
+out]``, Dense kernels ``[in, out]``), so ``weights.vqvae_state_dict`` is a
+rename; activations are channels-last ``[B, T, C]``. flax's "SAME" padding with an even kernel is
 asymmetric and differs between Conv and ConvTranspose; ``models.tasnet``'s
 ``conv_same`` and ``conv_transpose_same`` reproduce both.
 """
@@ -101,11 +101,9 @@ class VqVaeGumbel(nn.Module):
         temperature: float | torch.Tensor | None = None,
         kl_scale: float | torch.Tensor = 1.0,
         generator: torch.Generator | None = None,
-        plain: bool = False,
     ):
         """``temperature`` and ``kl_scale`` anneal tau and warm up the KL
         weight during training (``make_vae_steps``' ``schedule``)."""
-        del plain  # no nearest-code search: the codes are an argmax
         logits = self.encode_logits(x)
         sample = self.gumbel(logits, deterministic=deterministic, temperature=temperature,
                              generator=generator)
@@ -117,9 +115,8 @@ class VqVaeGumbel(nn.Module):
         aux = torch.mean(kl) * self.kl_weight * kl_scale
         return decoded, [aux]
 
-    def codes(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def codes(self, x: torch.Tensor) -> torch.Tensor:
         """Discrete code indices ``[B, T/32]`` (argmax over logits), int32."""
-        del plain
         return torch.argmax(self.encode_logits(x), dim=-1).to(torch.int32)
 
     def decode_codes(self, indices: torch.Tensor) -> torch.Tensor:
@@ -144,14 +141,14 @@ class VqVaeCodebook(nn.Module):
         self.decoder3 = _Conv(2 * d, frame_size, 4, transpose=True, generator=g)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = False,
-                generator: torch.Generator | None = None, plain: bool = False):
+                generator: torch.Generator | None = None):
         del deterministic, generator
         e1 = torch.relu(self.encoder1(x))
         e2 = torch.relu(self.encoder2(e1))
-        q1, aux1 = self.vq1(e2, plain)
+        q1, aux1 = self.vq1(e2)
         d1 = torch.relu(self.decoder1(q1))
         e3 = torch.relu(self.encoder3(torch.cat([e1, d1], dim=-1)))
-        q2, aux2 = self.vq2(e3, plain)
+        q2, aux2 = self.vq2(e3)
         d2 = torch.relu(self.decoder2(q1))
         return self.decoder3(torch.cat([d2, q2], dim=-1)), [aux1, aux2]
 
@@ -171,18 +168,18 @@ class VqVaeT2(nn.Module):
         self.decoder3 = _Conv(256, frame_size, 4, 2, transpose=True, generator=g)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = False,
-                generator: torch.Generator | None = None, plain: bool = False):
+                generator: torch.Generator | None = None):
         del deterministic, generator
         e1 = torch.tanh(self.encoder1(x))  # [B, K/2, 128]
         e2 = torch.tanh(self.encoder2(e1))  # [B, K/4, D]
-        q1, aux = self.vq1(e2, plain)
+        q1, aux = self.vq1(e2)
         d1 = torch.relu(self.decoder1(q1))  # [B, K/2, 128]
         return self.decoder3(torch.cat([e1, d1], dim=-1)), [aux]  # [B, K, 40]
 
-    def codes(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def codes(self, x: torch.Tensor) -> torch.Tensor:
         e2 = torch.tanh(self.encoder2(torch.tanh(self.encoder1(x))))
         flat = e2.reshape(-1, self.embedding_dim)
-        return nearest_code_indices(flat, self.vq1.embeddings, plain).reshape(e2.shape[:-1])
+        return nearest_code_indices(flat, self.vq1.embeddings).reshape(e2.shape[:-1])
 
 
 class VqVaeT3(nn.Module):
@@ -212,17 +209,17 @@ class VqVaeT3(nn.Module):
         return self.decoder3(torch.cat([e1, d2], dim=-1))  # [B, K, 40]
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = False,
-                generator: torch.Generator | None = None, plain: bool = False):
+                generator: torch.Generator | None = None):
         del deterministic, generator
         e1, e3 = self._encode(x)
-        q1, aux = self.vq1(e3, plain)
+        q1, aux = self.vq1(e3)
         return self._decode(q1, e1), [aux]
 
-    def codes(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def codes(self, x: torch.Tensor) -> torch.Tensor:
         """Tokenise: code indices ``[B, K/8]``."""
         _, e3 = self._encode(x)
         flat = e3.reshape(-1, self.embedding_dim)
-        return nearest_code_indices(flat, self.vq1.embeddings, plain).reshape(e3.shape[:-1])
+        return nearest_code_indices(flat, self.vq1.embeddings).reshape(e3.shape[:-1])
 
     def decode_codes(self, indices: torch.Tensor, e1: torch.Tensor) -> torch.Tensor:
         return self._decode(VectorQuantizer.lookup(self.vq1.embeddings, indices), e1)
@@ -274,17 +271,17 @@ class VqVaeT3Tok(nn.Module):
         return self.decoder3(torch.cat([s, d2], dim=-1))  # [B, K, 40]
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = False,
-                generator: torch.Generator | None = None, plain: bool = False):
+                generator: torch.Generator | None = None):
         del deterministic, generator
         skip, e3 = self._encode(x)
-        q1, aux1 = self.vq1(e3, plain)
-        q2, aux2 = self.vq2(skip, plain)
+        q1, aux1 = self.vq1(e3)
+        q2, aux2 = self.vq2(skip)
         return self._decode(q1, q2), [aux1, aux2]
 
-    def codes(self, x: torch.Tensor, plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    def codes(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Tokenise: ``(codes_deep [B, K/8, d1], codes_skip [B, K/2, d2·pq])``."""
         skip, e3 = self._encode(x)
-        return self.vq1.codes(e3, plain), self.vq2.codes(skip, plain)
+        return self.vq1.codes(e3), self.vq2.codes(skip)
 
     def decode_codes(self, codes_deep: torch.Tensor, codes_skip: torch.Tensor) -> torch.Tensor:
         """Waveform frames from the two code streams alone (no encoder)."""

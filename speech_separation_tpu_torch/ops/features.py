@@ -14,7 +14,6 @@ from typing import NamedTuple
 
 import torch
 
-from .stft import stft
 from .stft_cuda import stft_cuda
 
 __all__ = ["SpectralFeatures", "psm_features", "magnitude_angle"]
@@ -42,18 +41,16 @@ def psm_features(
     sources: torch.Tensor,
     size: int = 256,
     shift: int = 128,
-    *,
-    plain: bool = False,
 ) -> SpectralFeatures:
     """Mixture magnitude and phase and PSM labels from raw waveforms.
 
     ``mix``: ``[B, samples]``; ``sources``: ``[B, num_speakers, samples]``.
     The mixture and the sources go through one ``stft_cuda`` analysis (its
-    plain matmul on the CPU, or anywhere with ``plain=True``).
+    plain matmul where ``dispatch.use_plain`` says).
     """
     b, s, samples = sources.shape
     waves = torch.cat([mix.reshape(b, samples), sources.reshape(b * s, samples)])
-    spec = stft(waves, size, shift) if plain else stft_cuda(waves, size, shift)
+    spec = stft_cuda(waves, size, shift)
     mix_spec, src_spec = spec[:b], spec[b:].reshape(b, s, *spec.shape[1:])
     mix_re, mix_im = mix_spec.real, mix_spec.imag
     mag = torch.sqrt(mix_re * mix_re + mix_im * mix_im)

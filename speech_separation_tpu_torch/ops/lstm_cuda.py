@@ -6,9 +6,10 @@
 steps, tiled by :func:`forward_plan` (one launch per row slice where the
 batch is above what the card's resident grid holds).
 :func:`lstm_recurrence_plain` is its plain PyTorch version (a Python loop
-over time), which the wrapper takes only for a tensor on the CPU; on a CUDA
-tensor it launches the kernel or raises. The training forward
-(``ops/lstm_train_cuda.py``) shares the plan and the launch.
+over time), which the wrapper takes where ``dispatch.use_plain`` says (a CPU
+tensor, or inside ``plain_versions()``); otherwise it launches the kernel or
+raises. The training forward (``ops/lstm_train_cuda.py``) shares the plan
+and the launch.
 
 Semantics follow ``lstm_pallas``: Keras gate order i, f, g, o; the (h, c)
 carry in fp32; operands (xw, U and h before each product) in the compute
@@ -27,6 +28,7 @@ from typing import Sequence
 import torch
 
 from .. import _build
+from .dispatch import use_plain
 
 __all__ = [
     "ForwardPlan",
@@ -257,7 +259,7 @@ def lstm_recurrence(
     flag per direction (a BiLSTM passes ``(False, True)``). ``compute_dtype``
     defaults to ``xw.dtype``.
     """
-    if xw.device.type == "cpu":
+    if use_plain(xw):
         return lstm_recurrence_plain(xw, recurrent, reverse=reverse, compute_dtype=compute_dtype)
     if xw.device.type != "cuda" or recurrent.device != xw.device:
         raise ValueError(f"lstm_recurrence: tensors on {xw.device} and {recurrent.device}")

@@ -17,11 +17,11 @@ kernels:
   by :func:`backward_plan`.
 
 Each has a plain PyTorch version (a Python loop over time, the same
-roundings), which the wrapper takes only for a tensor on the CPU; on a CUDA
-tensor it launches the kernel or raises. The input projection and the
-gradients of ``x``, ``kernel``, ``recurrent`` and ``bias`` are large
-``torch`` matrix products outside the kernels, as the reference leaves them
-to XLA. :func:`bilstm_reference` is the same layer by autograd through a
+roundings), which the wrapper takes where ``dispatch.use_plain`` says (a CPU
+tensor, or inside ``plain_versions()``); otherwise it launches the kernel or
+raises. The input projection and the gradients of ``x``, ``kernel``,
+``recurrent`` and ``bias`` are large ``torch`` matrix products outside the
+kernels, as the reference leaves them to XLA. :func:`bilstm_reference` is the same layer by autograd through a
 plain fp32 loop (the counterpart of the ``lax.scan`` BiLSTM).
 
 Numerics follow the reference: ``xw = bf16(x @ W)`` taken to fp32, plus the
@@ -44,6 +44,7 @@ import dataclasses
 import torch
 
 from .. import _build
+from .dispatch import use_plain
 from .lstm_cuda import (
     _KERNEL_DTYPES,
     _check_shapes,
@@ -211,7 +212,7 @@ def lstm_train_forward(
     in scan order. Returns ``(out [B, T, D * H], gates [D, B, T, 4H])`` in the
     compute dtype (default ``xw.dtype``) and ``c_all [D, B, T, H]`` in fp32.
     """
-    if xw.device.type == "cpu":
+    if use_plain(xw):
         return lstm_train_forward_plain(xw, recurrent, keep=keep, compute_dtype=compute_dtype)
     dtype = compute_dtype or xw.dtype
     _launch_checks("lstm_train_forward", xw, recurrent, keep, dtype=dtype)
@@ -304,7 +305,7 @@ def lstm_train_backward(
     ``dy``: ``[B, T, D * H]``, the gradient of its ``out``; ``recurrent`` and
     ``keep`` as given to the forward.
     """
-    if gates.device.type == "cpu":
+    if use_plain(gates):
         return lstm_train_backward_plain(
             gates, c_all, dy, recurrent, keep=keep, compute_dtype=compute_dtype
         )
@@ -390,12 +391,12 @@ def _previous_states(y: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor
 
 class _BiLSTMTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, kernel, recurrent, bias, keep, dtype, plain):
+    def forward(ctx, x, kernel, recurrent, bias, keep, dtype):
         xw = _input_projection(x, kernel, bias, dtype)
-        run = lstm_train_forward_plain if plain else lstm_train_forward
-        y, gates, c_all = run(xw, recurrent, keep=keep, compute_dtype=dtype)
+        y, gates, c_all = lstm_train_forward(xw, recurrent, keep=keep, compute_dtype=dtype)
         ctx.save_for_backward(x, kernel, recurrent, y, gates, c_all, keep)
-        ctx.dtype, ctx.plain, ctx.bias_dtype = dtype, plain, bias.dtype
+        # the backward may run on autograd's own thread, outside the caller's switch
+        ctx.dtype, ctx.plain, ctx.bias_dtype = dtype, use_plain(xw), bias.dtype
         return y
 
     @staticmethod
@@ -410,7 +411,7 @@ class _BiLSTMTrain(torch.autograd.Function):
         drec = torch.einsum("dbth,dbtg->dhg", _previous_states(y, keep), dxw)
         return (
             dx.to(x.dtype), dkernel.to(kernel.dtype), drec.to(recurrent.dtype),
-            dbias.to(ctx.bias_dtype), None, None, None,
+            dbias.to(ctx.bias_dtype), None, None,
         )
 
 
@@ -422,16 +423,16 @@ def bilstm_train(
     *,
     keep: torch.Tensor | None = None,
     compute_dtype: torch.dtype = torch.bfloat16,
-    plain: bool = False,
 ) -> torch.Tensor:
     """Differentiable BiLSTM layer: ``x [B, T, F]`` → ``[B, T, 2H]`` in ``compute_dtype``.
 
     ``kernel [2, F, 4H]``, ``recurrent [2, H, 4H]``, ``bias [2, 4H]``: the
     parameter layout of ``bilstm_train_pallas``. ``keep [2, B, T]``: optional
     carry gate, each direction in its own scan order (``keep`` gets no
-    gradient). ``plain=True`` runs both recurrences' plain loops on any device.
+    gradient). Both recurrences run their plain loops where
+    ``dispatch.use_plain`` says.
     """
-    return _BiLSTMTrain.apply(x, kernel, recurrent, bias, keep, compute_dtype, plain)
+    return _BiLSTMTrain.apply(x, kernel, recurrent, bias, keep, compute_dtype)
 
 
 def bilstm_reference(

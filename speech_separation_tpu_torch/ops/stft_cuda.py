@@ -3,8 +3,9 @@
 :func:`stft_cuda` runs ``csrc/stft_analysis.cu`` on the unpadded signal:
 framing (the fade pads folded into the index), window and a real FFT in one
 pass, written as interleaved complex64 and returned as a view with no copy.
-Its plain version is ``stft.stft(method="matmul")``, which it takes only for a
-tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
+Its plain version is ``stft.stft(method="matmul")``, which it takes where
+``dispatch.use_plain`` says (a CPU tensor, or inside ``plain_versions()``);
+otherwise it launches the kernel or raises.
 
 :func:`stft_fft_plain` repeats the kernel's algorithm in PyTorch (the same
 twiddle table, Stockham radix-4 stages, split step and index arithmetic), so
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .dispatch import use_plain
 from .stft import stft, stft_frame_count
 from .windows import analysis_window
 
@@ -112,7 +114,7 @@ def stft_cuda(
     """
     if signal.dim() == 1:
         return stft_cuda(signal[None], size, shift, fading=fading)[0]
-    if signal.device.type == "cpu":
+    if use_plain(signal):
         return stft(signal, size, shift, fading=fading, method="matmul")
     if signal.device.type != "cuda":
         raise ValueError(f"stft_cuda: unsupported device {signal.device}")

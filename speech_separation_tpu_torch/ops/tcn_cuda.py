@@ -3,8 +3,9 @@ and the forward-only helpers of ``ops/tcn_train_pallas.py``).
 
 :func:`tcn_trunk_cuda` runs every dilated block of the trunk in
 ``csrc/tcn_trunk.cu`` and returns the skip sum. :func:`tcn_trunk_plain` is its
-plain PyTorch version, which the wrapper takes only for a tensor on the CPU;
-on a CUDA tensor it launches the kernel or raises. :func:`trunk_reference` is
+plain PyTorch version, which the wrapper takes where ``dispatch.use_plain``
+says (a CPU tensor, or inside ``plain_versions()``); otherwise it launches
+the kernel or raises. :func:`trunk_reference` is
 the fp32 oracle over the canonical stack.
 
 Per block ``j`` (``stack_tcn_weights``' arrays, gLN folded as in
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .dispatch import use_plain
 
 __all__ = [
     "MAX_DILATION",
@@ -405,7 +407,7 @@ def tcn_trunk_cuda(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int = 3)
     block, at most 64. On a CUDA tensor ``cb`` and ``ch`` must be multiples
     of 8 (16-byte rows for the kernel's tile loads).
     """
-    if h0.device.type == "cpu":
+    if use_plain(h0):
         return tcn_trunk_plain(h0, we, wdw, wg, vecs, dils=dils, taps=taps)
     skip, _, _ = launch_trunk(h0, we, wdw, wg, vecs, dils=dils, taps=taps, name="tcn_trunk_cuda")
     tcn_trunk_cuda.launches += 1

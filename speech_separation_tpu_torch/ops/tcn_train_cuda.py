@@ -13,9 +13,11 @@ ch]``, ``wcat [N, ch, 2cb]``, ``vecs [N, 10, vdim]``), a
   one cooperative launch a call laid out by :func:`backward_plan`.
 
 Each has a plain PyTorch version with the same roundings, which the wrapper
-takes only for a tensor on the CPU; on a CUDA tensor it launches the kernel or
-raises. The plain versions also take a ``storage`` dtype (bf16, the kernels'
-contract; fp32 separates the derivation from bf16 noise). Gradients reach
+takes where ``dispatch.use_plain`` says (a CPU tensor, or inside
+``plain_versions()``); otherwise it launches the kernel or raises. The plain
+versions also take a ``storage`` dtype (bf16, the kernels' contract; fp32,
+inside ``plain_versions()`` on a GPU, separates the derivation from bf16
+noise). Gradients reach
 every canonical array and, through ``stack_canonical``, the ``ConvTasNet``
 parameters: the PReLU slopes
 (rows 8 and 9) get one gradient per lane, which the lane broadcast of
@@ -39,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .dispatch import use_plain
 from .tcn_cuda import (
     MAX_DILATION,
     TRUNK_DEPTH,
@@ -198,7 +201,7 @@ def tcn_train_forward(h0, we, wdw, wg, vecs, *, dils: Sequence[int], taps: int =
     in bf16 and ``st [N, B, 4]`` fp32, ``(mu1, 1/sigma1, mu2,
     1/sigma2)`` per block and item. ``skip`` is :func:`~.tcn_cuda.tcn_trunk_cuda`'s
     output bit for bit; ``hb[j]`` is block ``j``'s input."""
-    if h0.device.type == "cpu":
+    if use_plain(h0):
         return tcn_train_forward_plain(h0, we, wdw, wg, vecs, dils=dils, taps=taps)
     out = launch_trunk(h0, we, wdw, wg, vecs, dils=dils, taps=taps, name="tcn_train_forward",
                        residuals=True)
@@ -379,7 +382,7 @@ def tcn_train_backward(dskip, hb, st, we, wdw, wcat, vecs, *, dils: Sequence[int
     fp32, the gradients of ``h0`` and of the canonical arrays given the skip
     sum's gradient ``dskip [B, K, cb]`` and :func:`tcn_train_forward`'s
     residuals ``hb``, ``st``. ``we``, ``wcat`` are used in bf16."""
-    if dskip.device.type == "cpu":
+    if use_plain(dskip):
         return tcn_train_backward_plain(dskip, hb, st, we, wdw, wcat, vecs, dils=dils, taps=taps)
     grads = launch_backward(dskip, hb, st, we, wdw, wcat, vecs, dils=dils, taps=taps,
                             name="tcn_train_backward")
@@ -456,8 +459,10 @@ tcn_train_backward.launches = 0
 
 class _TrunkTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h0, we, wdw, wcat, vecs, dils, taps, plain, storage):
+    def forward(ctx, h0, we, wdw, wcat, vecs, dils, taps, storage):
         folded = fold_canonical(we, wdw, wcat, vecs, storage)
+        # decided once: the backward may run on autograd's own thread
+        plain = use_plain(h0)
         if plain:
             skip, hb, st = tcn_train_forward_plain(h0, *folded, dils=dils, taps=taps,
                                                    storage=storage)
@@ -478,21 +483,20 @@ class _TrunkTrain(torch.autograd.Function):
             grads = tcn_train_backward(*args, dils=dils, taps=taps)
         dh0, dwe, dwdw, dwcat, dvec = grads
         return (dh0.to(h0_dtype), dwe.to(we.dtype), dwdw.to(wdw.dtype), dwcat.to(wcat.dtype),
-                dvec.to(vecs.dtype), None, None, None, None)
+                dvec.to(vecs.dtype), None, None, None)
 
 
 def tcn_trunk_train(h0, we, wdw, wcat, vecs, *, dils: Sequence[int], taps: int = 3,
-                    plain: bool = False, storage: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                    storage: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Differentiable trunk: the skip sum ``[B, K, cb]`` in ``storage``.
 
     ``h0 [B, K, cb]``; the canonical arrays of ``stack_canonical`` (fp32
     masters, cast inside); ``dils`` one dilation per block, at most 64.
-    Gradients flow to ``h0`` and to every canonical array. ``plain=True``
-    runs both passes' plain versions on any device; ``storage=torch.float32``
-    (plain only) rounds nothing.
+    Gradients flow to ``h0`` and to every canonical array. Both passes run
+    their plain versions where ``dispatch.use_plain`` says;
+    ``storage=torch.float32`` (plain only) rounds nothing.
     """
-    if storage != torch.bfloat16 and not plain:
+    if storage != torch.bfloat16 and not use_plain(h0):
         raise ValueError(f"tcn_trunk_train: the kernels store bf16; storage {storage} needs "
-                         "plain=True")
-    return _TrunkTrain.apply(h0, we, wdw, wcat, vecs, tuple(int(d) for d in dils), taps, plain,
-                             storage)
+                         "plain_versions()")
+    return _TrunkTrain.apply(h0, we, wdw, wcat, vecs, tuple(int(d) for d in dils), taps, storage)

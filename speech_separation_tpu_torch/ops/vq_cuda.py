@@ -18,8 +18,9 @@ then covers its rows in every group), or, where they do not fit, a unit's
 group streamed through a double-buffered ring.
 
 Its plain version, :func:`nearest_code_plain`, computes the same formula with
-one matmul and ``torch.argmin`` a group; the wrapper takes it only for tensors
-on the CPU, and on a CUDA tensor launches the kernel or raises. Both return
+one matmul and ``torch.argmin`` a group; the wrapper takes it where
+``dispatch.use_plain`` says (a CPU tensor, or inside ``plain_versions()``),
+and otherwise launches the kernel or raises. Both return
 int32 indices, the dtype of the JAX function. The search drops ``‖x‖²``,
 constant per row, as the Pallas kernel does; the JAX package's XLA branch
 keeps it, which can only matter at near ties.
@@ -32,6 +33,7 @@ import dataclasses
 import torch
 
 from .. import _build
+from .dispatch import use_plain
 from .tcn_cuda import _device_limits
 
 __all__ = [
@@ -171,7 +173,7 @@ def nearest_code(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     [N, D]``, ``codebook [D, K]`` → int32 ``[N]``; ``flat [N, G·S]``,
     ``codebook [G, S, K]`` → int32 ``[N, G]``. fp32; ``flat``'s columns
     contiguous, ``codebook`` contiguous."""
-    if flat.device.type == "cpu" and codebook.device.type == "cpu":
+    if use_plain(flat):
         return nearest_code_plain(flat, codebook)
     if flat.device.type != "cuda" or codebook.device != flat.device:
         raise ValueError(f"nearest_code: unsupported devices {flat.device}, {codebook.device}")

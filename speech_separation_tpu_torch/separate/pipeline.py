@@ -42,8 +42,6 @@ def make_separate_fn(
     method: str = "matmul",
     compute_dtype: torch.dtype | None = None,
     quantize_output: bool = False,
-    *,
-    plain: bool = False,
 ) -> Callable:
     """Returns ``separate(mix, frame_lengths) -> [B, S, samples]`` on the model's device.
 
@@ -54,15 +52,15 @@ def make_separate_fn(
     ``(codes int16, scale)`` per ``ops.quant.quantize_estimates_i16``.
 
     ``method="matmul"`` analyses with the ``stft_cuda`` kernel and
-    ``method="fft"`` with ``torch.fft`` (the oracle). ``plain=True`` runs the
-    kernels' plain versions instead, on any device: the reference path that a
-    GPU run is compared with.
+    ``method="fft"`` with ``torch.fft`` (the oracle). Inside
+    ``ops.plain_versions()`` every kernel runs its plain version: the
+    reference path that a GPU run is compared with.
     """
     net = model if compute_dtype is None else copy.deepcopy(model).to(compute_dtype)
     net.eval()
 
     def analyse(wave: torch.Tensor) -> torch.Tensor:
-        if method == "fft" or plain:
+        if method == "fft":
             return stft(wave, size, shift, method=method)
         return stft_cuda(wave, size, shift)
 
@@ -70,7 +68,7 @@ def make_separate_fn(
     def separate(mix: torch.Tensor, frame_lengths: torch.Tensor):
         spec = analyse(dequant_i16(mix))  # [B, T, F] complex
         mag, cos, sin = magnitude_angle(spec)
-        preds = net(mag, plain=plain).to(mag.dtype)
+        preds = net(mag).to(mag.dtype)
         t, f = mag.shape[-2], mag.shape[-1]
         lengths = torch.as_tensor(frame_lengths, device=mag.device)
         frame_mask = (torch.arange(t, device=mag.device)[None, :] < lengths[:, None]).to(

@@ -2,10 +2,10 @@
 
 :func:`make_upit_waveform_steps` runs the whole pipeline on the device from
 padded waveforms: int16 dequantization → STFT (the ``stft_cuda`` kernel) →
-PSM features → ``UPitBlstm`` training forward (the BiLSTM training kernels)
-→ PIT loss → backward → Adam. :func:`make_upit_packed_steps` does the same
-over sequence-packed rows (``data/packing.py``): the recurrences run the
-training kernels in their keep mode and the loss is
+PSM features → ``UPitBlstm`` forward under autograd (the BiLSTM training
+kernels) → PIT loss → backward → Adam. :func:`make_upit_packed_steps` does
+the same over sequence-packed rows (``data/packing.py``): the recurrences run
+the training kernels in their keep mode and the loss is
 :func:`~..losses.pit.pit_loss_packed`, per utterance;
 :func:`make_upit_packed_resident_steps` takes row indices into a corpus held
 on the device (``data/device_dataset.py``). :func:`make_time_domain_steps`
@@ -19,6 +19,7 @@ plus their auxiliary losses, every nearest-code search in the
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -45,41 +46,36 @@ def make_upit_waveform_steps(
     shift: int = 128,
     num_speakers: int = 2,
     compute_dtype: torch.dtype | None = None,
-    plain: bool = False,
 ) -> tuple[Callable, Callable]:
     """``(train_step, eval_step)`` over ``(state, mix [B, S], sources [B, n, S],
     frame_lengths [B])``; ``train_step`` returns ``(state, loss)`` and updates
     ``state`` in place, ``eval_step`` returns the loss without dropout.
 
     ``compute_dtype=torch.bfloat16`` runs the mask network's forward and
-    backward in bf16: the fp32 master parameters are cast inside the step,
-    the DSP features, the PIT loss and the optimizer update stay fp32, and
-    the gradient of the cast hands fp32 gradients to Adam. ``plain=True``
-    runs every kernel's plain version instead (the reference path on a GPU).
-    ``model`` is the ``UPitBlstm`` whose ``train_forward`` the steps call; the
-    state's optimizer holds its parameters (``TrainState.create(model, ...)``).
+    backward in bf16 (:func:`_cast_forward`); the DSP features, the PIT loss
+    and the optimizer update stay fp32. ``model`` is the ``UPitBlstm`` whose
+    forward the steps call (its BiLSTMs run the training kernels under
+    autograd); the state's optimizer holds its parameters
+    (``TrainState.create(model, ...)``).
     """
+    forward = _cast_forward(model, compute_dtype)
 
     def _loss(mix, sources, frame_lengths, generator):
-        feats = psm_features(dequant_i16(mix), dequant_i16(sources), size, shift, plain=plain)
-        preds = model.train_forward(
-            feats.magnitude, generator=generator, compute_dtype=compute_dtype, plain=plain
-        )
+        feats = psm_features(dequant_i16(mix), dequant_i16(sources), size, shift)
+        preds = forward(feats.magnitude, generator=generator)
         return pit_loss(preds.to(torch.float32), feats.labels, frame_lengths, num_speakers)
 
-    return _steps(_loss, lambda mix, sources, frame_lengths: (mix, sources, frame_lengths))
+    return _steps(_loss)
 
 
-def _packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype, plain):
+def _packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype):
     """The packed-row loss of :func:`make_upit_packed_steps` and
     :func:`make_upit_packed_resident_steps`."""
+    forward = _cast_forward(model, compute_dtype)
 
     def _loss(mix, sources, frame_seg, generator):
-        feats = psm_features(dequant_i16(mix), dequant_i16(sources), size, shift, plain=plain)
-        preds = model.train_forward(
-            feats.magnitude, generator=generator, compute_dtype=compute_dtype,
-            segment_ids=frame_seg, plain=plain,
-        )
+        feats = psm_features(dequant_i16(mix), dequant_i16(sources), size, shift)
+        preds = forward(feats.magnitude, generator=generator, segment_ids=frame_seg)
         return pit_loss_packed(
             preds.to(torch.float32), feats.labels, frame_seg, num_speakers, num_segments
         )
@@ -87,7 +83,22 @@ def _packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype, 
     return _loss
 
 
-def _steps(loss_fn, arrays: Callable) -> tuple[Callable, Callable]:
+def _cast_forward(model, compute_dtype: torch.dtype | None) -> Callable:
+    """``model``'s forward on its fp32 master parameters cast to
+    ``compute_dtype`` inside the call, differentiably, so the gradient of the
+    cast hands fp32 gradients to the optimizer; the module itself, with no
+    cast, where ``compute_dtype`` is ``None``."""
+    if compute_dtype is None:
+        return model
+
+    def forward(*args, **kwargs):
+        params = {name: p.to(compute_dtype) for name, p in model.named_parameters()}
+        return torch.func.functional_call(model, params, args, kwargs)
+
+    return forward
+
+
+def _steps(loss_fn, arrays: Callable = lambda *args: args) -> tuple[Callable, Callable]:
     """``(train_step, eval_step)`` over ``loss_fn(*arrays(*args), generator)``."""
 
     def train_step(state: TrainState, *args):
@@ -112,7 +123,6 @@ def make_upit_packed_steps(
     num_speakers: int = 2,
     num_segments: int = 8,
     compute_dtype: torch.dtype | None = None,
-    plain: bool = False,
 ) -> tuple[Callable, Callable]:
     """:func:`make_upit_waveform_steps` over sequence-packed rows: ``(state,
     mix [R, row_samples], sources [R, n, row_samples], frame_seg [R,
@@ -124,8 +134,7 @@ def make_upit_packed_steps(
     training kernels' keep mode), and :func:`pit_loss_packed` searches the
     permutations and normalises the length per segment. The loss is the sum
     over the utterances, the same sum the unpacked step reports."""
-    loss = _packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype, plain)
-    return _steps(loss, lambda mix, sources, frame_seg: (mix, sources, frame_seg))
+    return _steps(_packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype))
 
 
 def make_upit_packed_resident_steps(
@@ -138,14 +147,13 @@ def make_upit_packed_resident_steps(
     num_speakers: int = 2,
     num_segments: int = 8,
     compute_dtype: torch.dtype | None = None,
-    plain: bool = False,
 ) -> tuple[Callable, Callable]:
     """:func:`make_upit_packed_steps` over a corpus held on the device
     (``data.device_dataset.ResidentPackedCorpus``): each step takes only
     ``(state, idx [R])``, gathers those rows on the device and runs the same
     packed loss, so its losses and gradients equal the loader-fed steps' on
     the same rows."""
-    loss = _packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype, plain)
+    loss = _packed_loss(model, size, shift, num_speakers, num_segments, compute_dtype)
 
     def gather(idx):
         idx = idx.to(mix_all.device)
@@ -159,7 +167,6 @@ def make_time_domain_steps(
     model,
     compute_dtype: torch.dtype | None = None,
     pallas_trunk: bool = False,
-    plain: bool = False,
 ) -> tuple[Callable, Callable]:
     """``(train_step, eval_step)`` for a wave-in, wave-out separator
     (``ConvTasNet``) over ``(state, mix [B, samples], sources [B, S,
@@ -168,12 +175,10 @@ def make_time_domain_steps(
 
     ``pallas_trunk=False`` runs the module's own forward and autograd, in
     fp32 or, with ``compute_dtype=torch.bfloat16``, on the fp32 master
-    parameters cast to bf16 inside the step (gLN statistics stay fp32 in the
-    module; the cast's gradient hands fp32 gradients to Adam); causal models
-    train here. ``pallas_trunk=True`` (bf16 only, gLN models only) runs the
-    TCN trunk, forward and backward, in the training kernels
-    (``train_apply``); ``plain=True`` then runs their plain versions, the
-    reference path on a GPU.
+    parameters cast to bf16 inside the step (:func:`_cast_forward`; gLN
+    statistics stay fp32 in the module); causal models train here.
+    ``pallas_trunk=True`` (bf16 only, gLN models only) runs the TCN trunk,
+    forward and backward, in the training kernels (``train_apply``).
     """
     if pallas_trunk and getattr(model, "causal", False):
         # the kernel trunk implements the gLN, SAME-padded blocks only: a causal
@@ -185,41 +190,21 @@ def make_time_domain_steps(
     if pallas_trunk:
         from ..models.tasnet_serving import train_apply
 
-        def forward(mix):
-            return train_apply(model, mix, plain=plain)
-
-    elif compute_dtype is None:
-        forward = model
+        forward = functools.partial(train_apply, model)
     else:
+        forward = _cast_forward(model, compute_dtype)
 
-        def forward(mix):
-            params = {name: p.to(compute_dtype) for name, p in model.named_parameters()}
-            return torch.func.functional_call(model, params, (mix,))
-
-    def _loss(mix, sources, sample_lengths):
+    def _loss(mix, sources, sample_lengths, generator):
         est = forward(dequant_i16(mix)).to(torch.float32)
         return pit_si_sdr_loss(est, dequant_i16(sources), sample_lengths)
 
-    def train_step(state: TrainState, mix, sources, sample_lengths):
-        state.optimizer.zero_grad(set_to_none=True)
-        with span("train.forward"):
-            loss = _loss(mix, sources, sample_lengths)
-        with span("train.backward"):
-            loss.backward()
-        return state.apply_gradients(), loss.detach()
-
-    @torch.no_grad()
-    def eval_step(state: TrainState, mix, sources, sample_lengths):
-        return _loss(mix, sources, sample_lengths)
-
-    return train_step, eval_step
+    return _steps(_loss)
 
 
 def make_vae_steps(
     model,
     loss_fn: Callable = summed_squared_error,
     schedule: Callable[[int], dict] | None = None,
-    plain: bool = False,
 ) -> tuple[Callable, Callable]:
     """``(train_step, eval_step)`` for the VQ-VAE codecs over ``(state,
     inputs, targets)``: the reconstruction loss plus the model's own auxiliary
@@ -229,11 +214,10 @@ def make_vae_steps(
     place; ``eval_step`` returns ``(loss, recon, preds)`` from the
     deterministic forward. ``schedule(step)`` gives extra model keyword
     arguments (the Gumbel codec's ``temperature`` and ``kl_scale``) for the
-    training forward only. The Gumbel noise comes from the state's generator.
-    ``plain=True`` runs the nearest-code search's plain version."""
+    training forward only. The Gumbel noise comes from the state's generator."""
 
     def _loss(inputs, targets, generator, deterministic, extra=None):
-        kwargs = dict(deterministic=deterministic, generator=generator, plain=plain)
+        kwargs = dict(deterministic=deterministic, generator=generator)
         if extra:
             kwargs.update(extra)
         preds, aux_losses = model(inputs, **kwargs)

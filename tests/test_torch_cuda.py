@@ -15,7 +15,9 @@ import torch
 
 from speech_separation_tpu_torch.data.datasets import WaveformLoader
 from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
+from speech_separation_tpu_torch.models.blstm import BiLSTM
 from speech_separation_tpu_torch.models.upit import UPitBlstm
+from speech_separation_tpu_torch.ops import plain_versions
 from speech_separation_tpu_torch.ops.lstm_cuda import (
     _device_limits as _lstm_limits,
     _forward_launch,
@@ -252,7 +254,8 @@ def test_model_kernel_path_matches_plain(cuda_device):
     mag = _normal((3, 50, 129), seed=3).abs().to(cuda_device)
     with torch.no_grad():
         got = model(mag)
-        want = model(mag, plain=True)
+        with plain_versions():
+            want = model(mag)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4
 
@@ -265,7 +268,8 @@ def test_separate_kernel_path_matches_plain(cuda_device, tmp_path):
     mix = torch.from_numpy(batch.mix).to(cuda_device)
     lens = torch.from_numpy(batch.frame_lengths).to(cuda_device)
     got = make_separate_fn(model)(mix, lens)
-    want = make_separate_fn(model, plain=True)(mix, lens)
+    with plain_versions():
+        want = make_separate_fn(model)(mix, lens)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() <= PATH_REL
@@ -404,6 +408,37 @@ def test_bilstm_train_grads_match_autograd(cuda_device, keep):
         assert ((got - want).norm() / want.norm()).item() <= GRAD_REL
 
 
+@pytest.mark.parametrize("which", ["bilstm", "upit"])
+def test_modules_under_autograd_match_plain(cuda_device, which):
+    """``BiLSTM`` and ``UPitBlstm`` called under autograd on CUDA tensors run
+    the training kernels and return a result with gradients: their outputs
+    and every parameter's gradient against the plain path's (a module that
+    served here would leave its parameters' gradients empty)."""
+    gen = torch.Generator().manual_seed(0)
+    if which == "bilstm":
+        model, layers = BiLSTM(12, 20, generator=gen), 1
+        x, probe = _normal((5, 23, 12), seed=8) * 0.5, _normal((5, 23, 40), seed=13)
+    else:
+        model, layers = UPitBlstm(hidden=40, num_layers=2, dropout_rate=0.0, generator=gen), 2
+        x, probe = _normal((3, 30, 129), seed=3).abs(), _normal((3, 30, 258), seed=13)
+    model, x, probe = model.to(cuda_device), x.to(cuda_device), probe.to(cuda_device)
+    outs, grads = {}, {}
+    for kind in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        before = (lstm_train_forward.launches, lstm_train_backward.launches)
+        with plain_versions(kind == "plain"):
+            y = model(x)
+        assert y.grad_fn is not None
+        (y * probe).sum().backward()  # outside the switch: the backward keeps the forward's choice
+        launched = (lstm_train_forward.launches - before[0], lstm_train_backward.launches - before[1])
+        assert launched == ((layers, layers) if kind == "kernel" else (0, 0))
+        outs[kind] = y.detach()
+        grads[kind] = [p.grad for p in model.parameters()]
+    assert (outs["kernel"] - outs["plain"]).abs().max().item() <= TRAIN_ATOL
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert got is not None and ((got - want).norm() / want.norm()).item() <= GRAD_REL
+
+
 def test_train_step_kernel_path_matches_plain(cuda_device):
     from speech_separation_tpu_torch import train
 
@@ -415,12 +450,16 @@ def test_train_step_kernel_path_matches_plain(cuda_device):
         model = UPitBlstm(hidden=40, num_layers=2, dropout_rate=0.0,
                           generator=torch.Generator().manual_seed(0)).to(cuda_device)
         state = train.TrainState.create(model, train.exponential_decay_adam(), seed=0)
-        before = (lstm_train_forward.launches, lstm_train_backward.launches)
-        train_step, eval_step = train.make_upit_waveform_steps(model, plain=kind == "plain")
-        losses[kind] = [train_step(state, *arrays)[1].item() for _ in range(3)]
-        losses[kind].append(eval_step(state, *arrays).item())
-        launched = (lstm_train_forward.launches - before[0], lstm_train_backward.launches - before[1])
-        assert launched == ((2 * 4, 2 * 3) if kind == "kernel" else (0, 0))
+        before = (lstm_train_forward.launches, lstm_train_backward.launches,
+                  lstm_recurrence.launches)
+        train_step, eval_step = train.make_upit_waveform_steps(model)
+        with plain_versions(kind == "plain"):
+            losses[kind] = [train_step(state, *arrays)[1].item() for _ in range(3)]
+            losses[kind].append(eval_step(state, *arrays).item())
+        launched = (lstm_train_forward.launches - before[0], lstm_train_backward.launches - before[1],
+                    lstm_recurrence.launches - before[2])
+        # three steps in the training kernels, the eval step (no gradient) in the serving one
+        assert launched == ((2 * 3, 2 * 3, 2) if kind == "kernel" else (0, 0, 0))
         params[kind] = torch.cat([p.detach().flatten() for p in model.parameters()])
     np.testing.assert_allclose(losses["kernel"], losses["plain"], rtol=1e-5)
     assert ((params["kernel"] - params["plain"]).norm() / params["plain"].norm()).item() <= 1e-4
@@ -443,23 +482,23 @@ def test_packed_train_step_kernel_path_matches_plain(cuda_device, tmp_path):
     mix, sources, seg = (torch.from_numpy(a).to(cuda_device) for a in (b.mix, b.sources, b.frame_seg))
     losses, grads, params = {}, {}, {}
     for kind in ("kernel", "plain"):
-        plain = kind == "plain"
         model = UPitBlstm(hidden=64, num_layers=2, dropout_rate=0.0,
                           generator=torch.Generator().manual_seed(0)).to(cuda_device)
         before = (lstm_train_forward.keep_launches, lstm_train_backward.keep_launches)
-        feats = psm_features(mix, sources, plain=plain)
-        preds = model.train_forward(feats.magnitude, segment_ids=seg, plain=plain)
-        loss = pit_loss_packed(preds, feats.labels, seg, num_segments=loader.num_segments)
-        loss.backward()
+        with plain_versions(kind == "plain"):
+            feats = psm_features(mix, sources)
+            preds = model(feats.magnitude, segment_ids=seg)
+            loss = pit_loss_packed(preds, feats.labels, seg, num_segments=loader.num_segments)
+            loss.backward()
         launched = (lstm_train_forward.keep_launches - before[0],
                     lstm_train_backward.keep_launches - before[1])
         assert launched == ((2, 2) if kind == "kernel" else (0, 0))  # one a layer
         grads[kind] = [p.grad.detach().clone() for p in model.parameters()]
         state = train.TrainState.create(model, train.exponential_decay_adam(), seed=0)
-        train_step, eval_step = train.make_upit_packed_steps(
-            model, num_segments=loader.num_segments, plain=plain)
-        losses[kind] = [loss.item()] + [train_step(state, mix, sources, seg)[1].item()
-                                        for _ in range(2)] + [eval_step(state, mix, sources, seg).item()]
+        train_step, eval_step = train.make_upit_packed_steps(model, num_segments=loader.num_segments)
+        with plain_versions(kind == "plain"):
+            losses[kind] = [loss.item()] + [train_step(state, mix, sources, seg)[1].item()
+                                            for _ in range(2)] + [eval_step(state, mix, sources, seg).item()]
         params[kind] = torch.cat([p.detach().flatten() for p in model.parameters()])
     np.testing.assert_allclose(losses["kernel"], losses["plain"], rtol=1e-5)
     for got, want in zip(grads["kernel"], grads["plain"]):
@@ -765,11 +804,11 @@ def test_window_stream_launches_the_trunk_once_a_hop(cuda_device):
     mix = (_normal((6000,), seed=41) * 0.3).numpy()
     streams = {}
     for plain in (False, True):
-        sep = StreamingSeparator(lambda m, plain=plain: cuda_apply(model, m.to(cuda_device),
-                                                                   plain=plain),
+        sep = StreamingSeparator(lambda m: cuda_apply(model, m.to(cuda_device)),
                                  hop_seconds=0.125, context_seconds=0.375)
         before = tcn_trunk_cuda.launches
-        streams[plain] = [sep.push(mix[i : i + 1000]) for i in range(0, 6000, 1000)]
+        with plain_versions(plain):
+            streams[plain] = [sep.push(mix[i : i + 1000]) for i in range(0, 6000, 1000)]
         assert tcn_trunk_cuda.launches - before == (0 if plain else 6)
     for got, want in zip(streams[False], streams[True]):
         snr = 10 * np.log10(np.square(want).sum() / max(np.square(got - want).sum(), 1e-30))
@@ -811,7 +850,8 @@ def test_cuda_apply_kernel_trunk_matches_plain_trunk(cuda_device):
     mix = (_normal((3, 8800), seed=40) * 0.3).to(cuda_device)  # K = 1100 frames
     before = tcn_trunk_cuda.launches
     got = cuda_apply(model, mix)
-    want = cuda_apply(model, mix, plain=True)
+    with plain_versions():
+        want = cuda_apply(model, mix)
     torch.cuda.synchronize()
     assert tcn_trunk_cuda.launches == before + 1
     assert got.shape == (3, 2, 8800) and torch.isfinite(got).all()
@@ -949,8 +989,9 @@ def test_tcn_trunk_train_grads_match_autograd(cuda_device):
         if kind == "reference":
             out = trunk_reference(*params, dils=dils)
         else:
-            out = tcn_trunk_train(*params, dils=dils, plain=kind == "fp32",
-                                  storage=torch.float32 if kind == "fp32" else torch.bfloat16)
+            with plain_versions(kind == "fp32"):
+                out = tcn_trunk_train(*params, dils=dils,
+                                      storage=torch.float32 if kind == "fp32" else torch.bfloat16)
         (out.float() * probe).sum().backward()
         grads[kind] = [p.grad for p in params]
     for i, want in enumerate(grads["reference"]):
@@ -972,7 +1013,7 @@ def test_tcn_train_kernels_raise(cuda_device):
         tcn_train_forward(h0, folded[0].cpu(), *folded[1:], dils=dils)
     with pytest.raises(TypeError, match="must be torch.bfloat16"):
         tcn_train_forward(h0, *fold_canonical(we, wdw, wcat, vecs, torch.float32), dils=dils)
-    with pytest.raises(ValueError, match="needs plain=True"):
+    with pytest.raises(ValueError, match=r"needs plain_versions\(\)"):
         tcn_trunk_train(h0, we, wdw, wcat, vecs, dils=dils, storage=torch.float32)
     _, hb, st = tcn_train_forward(h0, *folded, dils=dils)
     with pytest.raises(ValueError, match="dskip"):
@@ -1147,7 +1188,8 @@ def test_vector_quantizers_on_the_card_launch_the_kernel(cuda_device):
         before = nearest_code.launches
         with torch.no_grad():
             out, aux = layer(x)
-            want, want_aux = layer(x, plain=True)
+            with plain_versions():
+                want, want_aux = layer(x)
         torch.cuda.synchronize()
         assert nearest_code.launches == before + launches
         assert (out - want).abs().max().item() <= 1e-6
@@ -1158,6 +1200,7 @@ def test_vector_quantizers_on_the_card_launch_the_kernel(cuda_device):
     before = nearest_code.launches
     with torch.no_grad():
         deep, skip = model.codes(frames)
-        plain = model.codes(frames, plain=True)
+        with plain_versions():
+            plain = model.codes(frames)
     assert nearest_code.launches == before + 2 + 2  # 2 deep stages, 2 skip stages of pq 4 each
     assert torch.equal(deep, plain[0]) and torch.equal(skip, plain[1])

@@ -8,6 +8,7 @@ before and after a DPRNN runs in the same process."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -40,6 +41,19 @@ def _toy(seed: int = 7) -> tuple[DPRNN, dict]:
     model = DPRNN(**TOY)
     model.load_state_dict(weights)
     return model.eval(), weights
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """One CPU thread for torch inside the block: the plain loops' small ops
+    run ~50× slower when the test workers' thread pools oversubscribe the
+    cores, and the bit-for-bit comparisons need one summation order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _mix(shape, seed: int = 0) -> torch.Tensor:
@@ -87,7 +101,7 @@ def test_pit_si_sdr_gradients_match_the_reference_autograd():
 
 def test_serving_runs_the_recurrence_and_training_the_training_kernels(monkeypatch):
     calls = {"serve": 0, "train": 0}
-    serve, trained = blstm.lstm_recurrence, dprnn.bilstm_train
+    serve, trained = blstm.lstm_recurrence, blstm.bilstm_train
 
     def counting_serve(*args, **kwargs):
         calls["serve"] += 1
@@ -98,7 +112,7 @@ def test_serving_runs_the_recurrence_and_training_the_training_kernels(monkeypat
         return trained(*args, **kwargs)
 
     monkeypatch.setattr(blstm, "lstm_recurrence", counting_serve)
-    monkeypatch.setattr(dprnn, "bilstm_train", counting_train)
+    monkeypatch.setattr(blstm, "bilstm_train", counting_train)
     model, _ = _toy()
     mix = _mix((2, 40))
     serving_fn(model)(mix)
@@ -143,14 +157,16 @@ CLI_TOY = {"variant": "dprnn", "batch_size": 2, "dprnn_enc_dim": 8, "dprnn_bottl
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    """``cli train --variant dprnn`` for two epochs on a two-utterance fixture."""
+    """``cli train --variant dprnn`` for two epochs on a two-utterance fixture
+    of 0.1-0.2 s: 800 to 1,600 frames at stride 1, 41 to 81 chunks of 40."""
     tmp = tmp_path_factory.mktemp("dprnn_cli")
-    root = make_synthetic_fixture(tmp / "fx", utterances_per_split=2, min_seconds=0.4,
-                                  max_seconds=0.9, seed=5)
+    root = make_synthetic_fixture(tmp / "fx", utterances_per_split=2, min_seconds=0.1,
+                                  max_seconds=0.2, seed=5)
     cfg = tmp / "cfg.json"
     cfg.write_text(json.dumps({k: v for k, v in CLI_TOY.items() if k != "variant"}))
-    cli.main(["train", "--config", str(cfg), "--variant", "dprnn", "--data-root", str(root),
-              "--epochs", "2", "--checkpoint-dir", str(tmp / "ckpt"), "--device", "cpu"])
+    with _one_thread():
+        cli.main(["train", "--config", str(cfg), "--variant", "dprnn", "--data-root", str(root),
+                  "--epochs", "2", "--checkpoint-dir", str(tmp / "ckpt"), "--device", "cpu"])
     return root, tmp / "ckpt"
 
 
@@ -163,13 +179,14 @@ def test_cli_train_writes_a_dprnn_checkpoint(trained, capsys):
     assert len(epochs) == 2 and all(math.isfinite(r["val_loss"]) for r in epochs)
 
 
-@pytest.mark.parametrize("extra", [[], ["--bf16"], ["--chunk-seconds", "0.5",
-                                                    "--chunk-overlap-seconds", "0.125"]],
+@pytest.mark.parametrize("extra", [[], ["--bf16"], ["--chunk-seconds", "0.05",
+                                                    "--chunk-overlap-seconds", "0.0125"]],
                          ids=["whole", "bf16", "chunked"])
 def test_cli_separate_serves_the_checkpoint(trained, tmp_path, capsys, extra):
     root, ckpt = trained
-    cli.main(["separate", "--checkpoint-dir", str(ckpt), "--data-root", str(root), "--out-dir",
-              str(tmp_path / "sep"), "--device", "cpu", *extra])
+    with _one_thread():
+        cli.main(["separate", "--checkpoint-dir", str(ckpt), "--data-root", str(root), "--out-dir",
+                  str(tmp_path / "sep"), "--device", "cpu", *extra])
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     wavs = sorted((tmp_path / "sep").glob("*.wav"))
     assert report["written"] == len(wavs) == 4
@@ -189,15 +206,13 @@ def test_cli_separate_refuses_what_dprnn_does_not_serve(trained, tmp_path, extra
     assert not (tmp_path / "sep").exists()
 
 
-SHARED = ("upit.forward", "upit.train_forward", "upit.grad", "tasnet.forward", "tasnet.grad")
+SHARED = ("upit.forward", "upit.train", "upit.grad", "tasnet.forward", "tasnet.grad")
 
 
 def _shared_outputs() -> dict:
     """The uPIT BLSTM's and Conv-TasNet's outputs and gradients on fixed
     inputs, one CPU thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
+    with _one_thread():
         rng = np.random.default_rng(11)
         upit = UPitBlstm(hidden=16, num_layers=2, generator=torch.Generator().manual_seed(3))
         mag = torch.from_numpy(np.abs(rng.standard_normal((2, 30, 129))).astype(np.float32))
@@ -206,15 +221,13 @@ def _shared_outputs() -> dict:
         mix = torch.from_numpy(rng.standard_normal((2, 1600)).astype(np.float32))
         with torch.no_grad():
             outs = {"upit.forward": upit(mag), "tasnet.forward": tasnet(mix)}
-        trained_out = upit.train_forward(mag)
+        trained_out = upit(mag)  # under autograd: the training recurrences
         trained_out.square().sum().backward()
-        outs["upit.train_forward"] = trained_out.detach()
+        outs["upit.train"] = trained_out.detach()
         outs["upit.grad"] = torch.cat([p.grad.flatten() for p in upit.parameters()])
         tasnet(mix).square().sum().backward()
         outs["tasnet.grad"] = torch.cat([p.grad.flatten() for p in tasnet.parameters()
                                          if p.grad is not None])
-    finally:
-        torch.set_num_threads(threads)
     return outs
 
 

@@ -20,7 +20,7 @@ from speech_separation_tpu.models.blstm import BiLSTM as JaxBiLSTM
 from speech_separation_tpu.ops.lstm_pallas import lstm_pallas
 from speech_separation_tpu.ops.stft_pallas import stft_pallas
 from speech_separation_tpu_torch.models.blstm import LSTM, BiLSTM
-from speech_separation_tpu_torch.ops import features, framing, quant, stft, windows
+from speech_separation_tpu_torch.ops import features, framing, plain_versions, quant, stft, windows
 from speech_separation_tpu_torch.ops.lstm_cuda import lstm_recurrence, lstm_recurrence_plain
 from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda
 from speech_separation_tpu_torch.weights import flatten_params
@@ -184,7 +184,8 @@ def test_bilstm_both_directions_match_jax_bilstm():
     assert tuple(model.cells.kernel.shape) == (2, 5, 32)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
-        got_plain = model(torch.from_numpy(x), plain=True).numpy()
+        with plain_versions():
+            got_plain = model(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=LSTM_ATOL)
     np.testing.assert_array_equal(got, got_plain)
 

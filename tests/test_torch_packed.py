@@ -235,9 +235,11 @@ def test_train_forward_with_segment_ids_matches_jax_kernels(models):
     want = upit_blstm_train_forward(params, jnp.asarray(row), num_layers=2, dropout_rng=None,
                                     compute_dtype=jnp.float32, interpret=True,
                                     segment_ids=jnp.asarray(seg))
+    got = model(torch.from_numpy(row), segment_ids=torch.from_numpy(seg))  # under autograd
     with torch.no_grad():
-        got = model.train_forward(torch.from_numpy(row), segment_ids=torch.from_numpy(seg))
         served = model(torch.from_numpy(row), segment_ids=torch.from_numpy(seg))
+    assert got.grad_fn is not None
+    got = got.detach()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_TOL, rtol=FWD_TOL)
     torch.testing.assert_close(served, got, atol=1e-6, rtol=0)
 
@@ -246,14 +248,14 @@ def test_train_forward_with_segment_ids_matches_jax_kernels(models):
 def test_each_segment_equals_its_utterance_alone(models, which):
     """The carry gate isolates utterances in both directions: a segment's
     output is its utterance's output run alone (a missing or doubled flip of
-    the backward direction's gate would leak the neighbour's carry)."""
+    the backward direction's gate would leak the neighbour's carry).
+    ``train_forward``: the module under autograd (the training recurrences)."""
     model = models[2]
     utts, row, seg, spans = _packed_row(seed=6)
-    run = getattr(model, which)
-    with torch.no_grad():
-        packed = run(torch.from_numpy(row), segment_ids=torch.from_numpy(seg))
+    with torch.set_grad_enabled(which == "train_forward"):
+        packed = model(torch.from_numpy(row), segment_ids=torch.from_numpy(seg))
         for u, (a, b) in zip(utts, spans):
-            alone = run(torch.from_numpy(u))
+            alone = model(torch.from_numpy(u))
             torch.testing.assert_close(packed[:1, a:b], alone, atol=1e-5, rtol=1e-4)
 
 
@@ -283,7 +285,7 @@ def test_packed_steps_match_jax_pallas_steps(models, fixture_tree):
     # the packed loss's gradients, before any update
     jloss_fn = jsteps._packed_loss_builder(jmodel, SIZE, SHIFT, 2, loader.num_segments, None, True)
     jgrads = jax.jit(jax.grad(lambda p, *a: jloss_fn(p, *a, jstate.rng, True)))(jstate.params, *jargs)
-    _packed_loss(model, SIZE, SHIFT, 2, loader.num_segments, None, False)(*targs, None).backward()
+    _packed_loss(model, SIZE, SHIFT, 2, loader.num_segments, None)(*targs, None).backward()
     got = upit_blstm_params({n: p.grad for n, p in model.named_parameters()})
     for path, want in jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, jgrads)):
         g = got

@@ -24,7 +24,7 @@ from speech_separation_tpu.ops import tcn_pallas as jtcn
 from speech_separation_tpu.ops import tcn_train_pallas as jtcn_train
 from speech_separation_tpu_torch.models.tasnet import ConvTasNet
 from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply, fused_apply
-from speech_separation_tpu_torch.ops import tcn_cuda
+from speech_separation_tpu_torch.ops import plain_versions, tcn_cuda
 from speech_separation_tpu_torch.weights import convtasnet_params, convtasnet_state_dict
 
 # small but with every dilation path (up to 2^(blocks-1) = 8 on K = 128 frames)
@@ -192,7 +192,8 @@ def test_cuda_apply_on_cpu_matches_pallas_apply(win):
     assert got.shape == want.shape == ref.shape
     assert _snr_db(want, got) >= BF16_PAIR_DB
     assert _snr_db(ref, got) > PALLAS_DB
-    assert np.array_equal(cuda_apply(model, torch.from_numpy(mix), plain=True).numpy(), got)
+    with plain_versions():
+        assert np.array_equal(cuda_apply(model, torch.from_numpy(mix)).numpy(), got)
 
 
 def test_cuda_apply_ragged_frames():

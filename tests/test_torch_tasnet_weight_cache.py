@@ -14,6 +14,7 @@ import torch
 
 from speech_separation_tpu_torch.models import tasnet_serving as serving
 from speech_separation_tpu_torch.models.tasnet import ConvTasNet
+from speech_separation_tpu_torch.ops import plain_versions
 
 # small, gLN, every dilation path (up to 2^(blocks-1) = 4 on K = 100 frames)
 SMALL = dict(num_speakers=2, enc_dim=32, win=16, bottleneck=16, hidden=32, kernel=3, blocks=3,
@@ -59,7 +60,8 @@ def builds(monkeypatch) -> list:
 
 
 def _apply(model, mix):
-    return serving.cuda_apply(model, mix, plain=True)
+    with plain_versions():
+        return serving.cuda_apply(model, mix)
 
 
 def test_a_second_call_is_a_hit(mix, builds):

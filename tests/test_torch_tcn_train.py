@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from speech_separation_tpu.models import ConvTasNet as JaxConvTasNet
 from speech_separation_tpu.ops import tcn_train_pallas as jtrain
 from speech_separation_tpu_torch.models.tasnet import ConvTasNet
-from speech_separation_tpu_torch.ops import tcn_cuda
+from speech_separation_tpu_torch.ops import plain_versions, tcn_cuda
 from speech_separation_tpu_torch.ops.tcn_train_cuda import (
     tcn_train_backward,
     tcn_train_backward_plain,
@@ -82,9 +82,9 @@ def _port(arrays, probe, storage):
     params = [torch.from_numpy(a.copy()).requires_grad_() for a in arrays]
     # fp32 storage is the plain passes' alone; bf16 takes the kernels' wrappers,
     # which on a CPU tensor run their plain versions
-    out = tcn_trunk_train(*params, dils=DILS, taps=TAPS, storage=storage,
-                          plain=storage != torch.bfloat16)
-    (out.float() * torch.from_numpy(probe)).sum().backward()
+    with plain_versions(storage != torch.bfloat16):
+        out = tcn_trunk_train(*params, dils=DILS, taps=TAPS, storage=storage)
+        (out.float() * torch.from_numpy(probe)).sum().backward()
     return out.detach().float().numpy(), [p.grad.numpy() for p in params]
 
 
@@ -214,8 +214,9 @@ def test_grads_reach_the_convtasnet_parameters():
     model.load_state_dict(convtasnet_state_dict(params))
     named = dict(model.named_parameters())
     arrs = tcn_cuda.stack_canonical(named, blocks=2, repeats=1)
-    out = tcn_trunk_train(torch.from_numpy(h0), *arrs, dils=dils, plain=True, storage=torch.float32)
-    (out.float() ** 2).sum().backward()
+    with plain_versions():
+        out = tcn_trunk_train(torch.from_numpy(h0), *arrs, dils=dils, storage=torch.float32)
+        (out.float() ** 2).sum().backward()
     checked = 0
     for name, p in named.items():
         if not name.startswith("tcn_"):

@@ -19,6 +19,7 @@ from speech_separation_tpu_torch.models.tasnet import ConvTasNet
 from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply
 from speech_separation_tpu_torch.models.upit import UPitBlstm
 from speech_separation_tpu_torch.models.vqvae import VqVaeCodebook
+from speech_separation_tpu_torch.ops import plain_versions
 from speech_separation_tpu_torch.separate.streaming import StreamingSeparator
 from speech_separation_tpu_torch.utils import span
 
@@ -83,9 +84,10 @@ def _tasnet() -> ConvTasNet:
 
 
 def _stream(model: ConvTasNet, hops: np.ndarray) -> list[np.ndarray]:
-    sep = StreamingSeparator(lambda window: cuda_apply(model, window, plain=True), sample_rate=SR,
+    sep = StreamingSeparator(lambda window: cuda_apply(model, window), sample_rate=SR,
                              hop_seconds=HOP / SR, context_seconds=CONTEXT / SR)
-    return [sep.push(h) for h in hops]
+    with plain_versions():
+        return [sep.push(h) for h in hops]
 
 
 @pytest.fixture(scope="module")
@@ -144,7 +146,7 @@ def test_feed_pins_once_a_batch():
 
 def _upit_step():
     model = UPitBlstm(hidden=8, num_layers=1, generator=torch.Generator().manual_seed(0))
-    step, _ = train.make_upit_waveform_steps(model, plain=True)
+    step, _ = train.make_upit_waveform_steps(model)
     rng = np.random.default_rng(2)
     samples = 1024
     mix = torch.from_numpy(rng.integers(-3000, 3000, (2, samples)).astype(np.int16))
@@ -166,7 +168,7 @@ def _tasnet_step():
 def _vae_step():
     model = VqVaeCodebook(embedding_dim=8, num_embeddings=16,
                           generator=torch.Generator().manual_seed(0))
-    step, _ = train.make_vae_steps(model, plain=True)
+    step, _ = train.make_vae_steps(model)
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 16, 40)).astype(np.float32))
     return model, train.nadam(1e-3), step, (x, x.clone()), 0
 
@@ -177,7 +179,7 @@ def test_train_step_spans_forward_then_backward(factory):
     model, tx, step, args, seed = factory()
     model.train()
     state = train.TrainState.create(model, tx, seed)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with plain_versions(), profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(STEPS):
             out = step(state, *args)
             state = out[0]
