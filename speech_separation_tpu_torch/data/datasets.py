@@ -7,7 +7,8 @@
   sample-level ``[B, T, 1]`` or frame-stacked ``[B, K, L]``;
 - :func:`background_iterator` — decode ahead in a worker thread;
 - :func:`prefetch_to_device` — keep batches in flight on the device: pinned
-  host memory and ``.to(device, non_blocking=True)``.
+  host memory and ``.to(device, non_blocking=True)``;
+- :func:`to_host` — results back to the host in page-locked memory.
 
 Training adds per-epoch shuffling (``default_rng(seed + epoch)``, the JAX
 loader's order, so one seed gives the same batches in both packages),
@@ -46,6 +47,7 @@ __all__ = [
     "load_source_files",
     "background_iterator",
     "prefetch_to_device",
+    "to_host",
 ]
 
 
@@ -378,6 +380,26 @@ def _to_device(batch, device: torch.device):
 
     with span("feed.pin"):  # the batch's fields pinned and their copies queued
         return type(batch)(*(put(x) for x in batch))
+
+
+def to_host(x):
+    """``x``, a tensor or a tuple of them, on the host, ready to read.
+
+    A CUDA tensor is copied once into a new page-locked tensor, which the
+    copy engine fills at the link's full rate (a pageable ``.cpu()`` goes
+    through a CUDA staging buffer and faults in fresh pages), and the
+    call waits for the copy. The memory comes from torch's caching host
+    allocator, which hands a block out again only once the tensor and every
+    view of it are gone, so a result stays valid for as long as anything
+    holds it. A CPU tensor is returned as it is."""
+    if isinstance(x, tuple):
+        return tuple(to_host(t) for t in x)
+    if x.device.type != "cuda":
+        return x
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    torch.cuda.current_stream(x.device).synchronize()
+    return host
 
 
 def prefetch_to_device(iterator, device, depth: int = 2):

@@ -2,8 +2,9 @@
 
 STFT (the ``stft_cuda`` kernel) → magnitude and phase → ``UPitBlstm`` mask
 estimation (the ``lstm_recurrence`` kernel) → phase reapply → iSTFT matmul and
-overlap-add, over a padded batch on one device; the host only trims each
-utterance to its true length and writes wavs.
+overlap-add, over a padded batch on one device; the estimates come back in
+page-locked host memory (``data.datasets.to_host``), and the host only trims
+each utterance to its true length and writes wavs.
 
 Variable lengths: frames beyond an utterance's true frame count are zeroed
 *before* overlap-add, which makes the output within the valid region equal to
@@ -20,7 +21,7 @@ from typing import Callable
 import torch
 
 from ..data.audio_io import audiowrite, wait_for_pending_writes
-from ..data.datasets import WaveformLoader, prefetch_to_device
+from ..data.datasets import WaveformLoader, prefetch_to_device, to_host
 from ..ops.features import magnitude_angle
 from ..ops.quant import dequant_i16, dequantize_estimates_i16, quantize_estimates_i16
 from ..ops.stft import istft, stft
@@ -43,7 +44,9 @@ def make_separate_fn(
     compute_dtype: torch.dtype | None = None,
     quantize_output: bool = False,
 ) -> Callable:
-    """Returns ``separate(mix, frame_lengths) -> [B, S, samples]`` on the model's device.
+    """Returns ``separate(mix, frame_lengths) -> [B, S, samples]`` on the host,
+    page-locked where the model is on a GPU (``data.datasets.to_host``: one
+    copy a call, which the call waits for).
 
     ``mix`` is ``[B, samples]`` float or int16 PCM (dequantized on the
     device); ``frame_lengths`` ``[B]`` holds each utterance's true STFT frame
@@ -80,7 +83,7 @@ def make_separate_fn(
             est = torch.complex(masked * cos, masked * sin)
             wavs.append(istft(est, size, shift, method=method))
         out = torch.stack(wavs, dim=1)
-        return quantize_estimates_i16(out) if quantize_output else out
+        return to_host(quantize_estimates_i16(out) if quantize_output else out)
 
     return separate
 
@@ -126,9 +129,9 @@ def separate_directory(
         out = separate(batch.mix, batch.frame_lengths)
         if transfer_int16:
             codes, scale = out
-            wavs = dequantize_estimates_i16(codes.cpu().numpy(), scale.cpu().numpy())
+            wavs = dequantize_estimates_i16(codes.numpy(), scale.numpy())
         else:
-            wavs = out.cpu().numpy()
+            wavs = out.numpy()
         for i, (name, frames) in enumerate(zip(batch.names, batch.frame_lengths.tolist())):
             stem = pathlib.Path(name).stem
             true_len = separated_length(int(frames), size, shift)

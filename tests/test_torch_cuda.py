@@ -63,6 +63,7 @@ from speech_separation_tpu_torch.ops.tcn_train_cuda import (
 )
 from speech_separation_tpu_torch.ops.tcn_train_cuda import backward_plan as tcn_backward_plan
 from speech_separation_tpu_torch.ops.vq_cuda import nearest_code, nearest_code_plain
+from speech_separation_tpu_torch.separate import pipeline
 from speech_separation_tpu_torch.separate.pipeline import make_separate_fn
 from speech_separation_tpu_torch.separate.streaming import StreamingSeparator
 from speech_separation_tpu_torch.separate.streaming_stateful import stateful_stream_separate
@@ -260,19 +261,50 @@ def test_model_kernel_path_matches_plain(cuda_device):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-def test_separate_kernel_path_matches_plain(cuda_device, tmp_path):
+def _serving_batch(device, tmp_path):
     root = make_synthetic_fixture(tmp_path, utterances_per_split=2, min_seconds=0.5, max_seconds=1.5)
     batch = next(iter(WaveformLoader(pathlib.Path(root) / "tt", batch_size=2)))
     model = UPitBlstm(hidden=40, num_layers=2, generator=torch.Generator().manual_seed(0))
-    model = model.to(cuda_device)
-    mix = torch.from_numpy(batch.mix).to(cuda_device)
-    lens = torch.from_numpy(batch.frame_lengths).to(cuda_device)
+    mix = torch.from_numpy(batch.mix).to(device)
+    return model.to(device), mix, torch.from_numpy(batch.frame_lengths).to(device)
+
+
+def test_separate_kernel_path_matches_plain(cuda_device, tmp_path):
+    model, mix, lens = _serving_batch(cuda_device, tmp_path)
     got = make_separate_fn(model)(mix, lens)
     with plain_versions():
         want = make_separate_fn(model)(mix, lens)
     torch.cuda.synchronize()
+    assert got.device.type == want.device.type == "cpu"
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() <= PATH_REL
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "quantize_output"])
+def test_separate_returns_pinned_host_estimates(cuda_device, tmp_path, monkeypatch, quantize):
+    model, mix, lens = _serving_batch(cuda_device, tmp_path)
+    got = make_separate_fn(model, quantize_output=quantize)(mix, lens)
+    monkeypatch.setattr(pipeline, "to_host", lambda x: x)  # the device result, as before
+    on_device = make_separate_fn(model, quantize_output=quantize)(mix, lens)
+    got, on_device = (got, on_device) if quantize else ((got,), (on_device,))
+    assert len(got) == len(on_device) == (2 if quantize else 1)
+    for g, d in zip(got, on_device):
+        assert g.device.type == "cpu" and g.is_pinned() and d.device.type == "cuda"
+        assert g.dtype == d.dtype and torch.equal(g, d.cpu())  # bit for bit
+    if quantize:
+        assert got[0].dtype == torch.int16
+
+
+def test_separate_results_outlive_later_calls(cuda_device, tmp_path):
+    model, mix, lens = _serving_batch(cuda_device, tmp_path)
+    separate = make_separate_fn(model)
+    held = separate(mix, lens).numpy()  # only the numpy view holds the pinned block
+    saved = held.copy()
+    other = separate(0.5 * mix.flip(0), lens.flip(0)).numpy()
+    for _ in range(4):  # the same size class again: a freed block would be handed out here
+        separate(mix.flip(0), lens.flip(0))
+    assert not np.array_equal(other, saved)
+    np.testing.assert_array_equal(held, saved)
 
 
 def _train_inputs(dirs, batch, steps, hidden, device, seed, keep):

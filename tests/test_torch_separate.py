@@ -17,10 +17,11 @@ from speech_separation_tpu.data.fixture import make_synthetic_fixture as jax_fix
 from speech_separation_tpu.models import UPitBlstm as JaxUPitBlstm
 from speech_separation_tpu.separate import pipeline as jpipeline
 from speech_separation_tpu_torch import _build
-from speech_separation_tpu_torch.data.audio_io import quantize_i16
-from speech_separation_tpu_torch.data.datasets import WaveformLoader, prefetch_to_device
+from speech_separation_tpu_torch.data.audio_io import audiowrite, quantize_i16
+from speech_separation_tpu_torch.data.datasets import WaveformLoader, prefetch_to_device, to_host
 from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
 from speech_separation_tpu_torch.models.upit import UPitBlstm
+from speech_separation_tpu_torch.ops.quant import dequantize_estimates_i16
 from speech_separation_tpu_torch.separate import pipeline
 from speech_separation_tpu_torch.weights import upit_blstm_state_dict
 
@@ -102,6 +103,64 @@ def test_separate_directory_matches_jax(fixture_tree, models, tmp_path):
         rate_w, pcm_w = wavfile.read(w)
         assert rate_g == rate_w == 8000 and pcm_g.shape == pcm_w.shape
         assert np.abs(pcm_g.astype(np.int32) - pcm_w).max() <= LSB, g.name
+
+
+def test_to_host_keeps_cpu_tensors_and_maps_tuples():
+    wave = torch.linspace(-1.0, 1.0, 12).reshape(1, 2, 6)
+    assert to_host(wave) is wave
+    codes, scale = torch.ones(1, 2, 6, dtype=torch.int16), torch.ones(1, 2)
+    out = to_host((codes, scale))
+    assert type(out) is tuple and len(out) == 2
+    assert out[0] is codes and out[1] is scale
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "quantize_output"])
+def test_make_separate_fn_returns_its_estimates_on_the_host(fixture_tree, models, monkeypatch,
+                                                            quantize):
+    _, _, model = models
+    batch = _ragged_batch(fixture_tree, int16=False)
+    handed = []
+
+    def spy(x):
+        handed.append(x)
+        return to_host(x)
+
+    monkeypatch.setattr(pipeline, "to_host", spy)
+    got = pipeline.make_separate_fn(model, quantize_output=quantize)(
+        torch.from_numpy(batch.mix), torch.from_numpy(batch.frame_lengths)
+    )
+    # one hand-over a call, of what the call computed; on the CPU the very same tensors
+    assert len(handed) == 1
+    tensors = got if quantize else (got,)
+    want = handed[0] if quantize else (handed[0],)
+    assert len(tensors) == len(want) == (2 if quantize else 1)
+    for g, w in zip(tensors, want):
+        assert g is w and g.device.type == "cpu"
+    if quantize:
+        assert got[0].dtype == torch.int16 and got[1].dtype == torch.float32
+
+
+@pytest.mark.parametrize("int16", [False, True], ids=["float", "transfer_int16"])
+def test_separate_directory_writes_the_estimates_it_returns(fixture_tree, models, tmp_path,
+                                                            int16):
+    _, _, model = models
+    split = fixture_tree / "tt"
+    got = pipeline.separate_directory(model, split, tmp_path / "dir", transfer_int16=int16)
+    separate = pipeline.make_separate_fn(model, quantize_output=int16)
+    want = []
+    for batch in WaveformLoader(split, batch_size=2, transfer_int16=int16):
+        out = separate(torch.from_numpy(batch.mix), torch.from_numpy(batch.frame_lengths))
+        wavs = dequantize_estimates_i16(*(t.numpy() for t in out)) if int16 else out.numpy()
+        for i, (name, frames) in enumerate(zip(batch.names, batch.frame_lengths.tolist())):
+            n = pipeline.separated_length(int(frames), 256, 128)
+            for s in range(2):
+                path = tmp_path / "one" / f"{pathlib.Path(name).stem}_s{s + 1}.wav"
+                path.parent.mkdir(exist_ok=True)
+                audiowrite(wavs[i, s, :n], path, samplerate=8000, normalize=True)
+                want.append(path)
+    assert [p.name for p in got] == [p.name for p in want] and len(got) == 4
+    for g, w in zip(got, want):
+        assert g.read_bytes() == w.read_bytes(), g.name
 
 
 def test_separate_directory_int16_transfer(fixture_tree, models, tmp_path):
