@@ -20,24 +20,27 @@
 ``train`` trains the config's ``variant`` (``--variant`` overrides it) from
 raw waveforms, writing ``train_config.json``, ``metrics.jsonl`` and the best
 checkpoints to the checkpoint directory. ``--workload upit``: the uPIT BLSTM
-(``blstm``) on the PIT loss of its masks, or Conv-TasNet (``tasnet``) or
-DPRNN-TasNet (``dprnn``, its BiLSTMs in the training kernels) wave to wave
-on the negative SI-SDR, with ``tasnet_pallas_trunk`` running the TCN
-trunk's forward and backward in the training CUDA kernels (bf16). With
-``pack`` the BLSTM trains on sequence-packed rows (``data/packing.py``), its
-recurrences in the training kernels' keep mode; with ``dynamic_mix`` the
-training stream is remixed every epoch (re-paired sources, fresh gains and
-crops; ``data/datasets.py``).
+(``blstm``) on the PIT loss of its masks, or Conv-TasNet (``tasnet``),
+DPRNN-TasNet (``dprnn``, its BiLSTMs in the training kernels) or SepFormer
+(``sepformer``, its attention in SDPA's flash kernel: on a GPU it trains
+with ``bf16_compute``) wave to wave on the negative SI-SDR, with
+``tasnet_pallas_trunk`` running the TCN trunk's forward and backward in the
+training CUDA kernels (bf16). With ``pack`` the BLSTM trains on
+sequence-packed rows (``data/packing.py``), its recurrences in the training
+kernels' keep mode; with ``dynamic_mix`` the training stream is remixed every
+epoch (re-paired sources, fresh gains and crops; ``data/datasets.py``).
 ``--workload vqvae``: a VQ-VAE codec (``gumbel``, ``v2``, ``t2``, ``t3``,
 ``t3tok``) on the summed squared error plus its auxiliary losses, NAdam for
 the t-series and Adam otherwise. ``separate`` loads the best checkpoint: a
-``blstm`` checkpoint goes to ``separate_directory``; a ``tasnet`` or ``dprnn``
-checkpoint to the time-domain path, whole utterances or overlapped chunks,
-with ``--kernel pallas`` running Conv-TasNet's TCN trunk in the ``tcn_trunk``
+``blstm`` checkpoint goes to ``separate_directory``; a ``tasnet``, ``dprnn``
+or ``sepformer`` checkpoint to the time-domain path, whole utterances or
+overlapped chunks, with ``--kernel pallas`` running Conv-TasNet's TCN trunk in the ``tcn_trunk``
 CUDA kernel (bf16; the JAX flag's name) and ``--kernel xla`` the module's own
 forward; DPRNN-TasNet always runs its module (``models.dprnn.serving_fn``,
 its recurrences in the ``lstm_recurrence`` kernel; ``--bf16`` for bf16) and
-refuses ``--kernel pallas`` and streaming.
+SepFormer its (``models.sepformer.serving_fn``; on a GPU only with
+``--bf16``, its products in bf16 and its attention in the flash kernel);
+both refuse ``--kernel pallas`` and streaming.
 ``--streaming-hop-seconds`` separates each utterance hop by hop instead (it
 wins over ``--chunk-seconds`` and turns ``--transfer-int16`` off): a causal
 checkpoint through the exact stateful engine, a gLN one through sliding
@@ -66,6 +69,8 @@ import torch
 
 __all__ = ["main"]
 
+TIME_DOMAIN = ("tasnet", "dprnn", "sepformer")  # wave-in, wave-out separators
+
 
 def _device(name: str) -> torch.device:
     """The device ``--device`` names; exits when it is ``cuda`` and there is no GPU."""
@@ -79,9 +84,24 @@ def _device(name: str) -> torch.device:
 
 def _build_model(cfg, device: torch.device):
     from .models.dprnn import DPRNN
+    from .models.sepformer import SepFormer
     from .models.tasnet import ConvTasNet
     from .models.upit import UPitBlstm
 
+    if cfg.variant == "sepformer":
+        model = SepFormer(
+            num_speakers=cfg.num_speakers,
+            enc_dim=cfg.sepformer_enc_dim,
+            win=cfg.sepformer_win,
+            d_model=cfg.sepformer_d_model,
+            heads=cfg.sepformer_heads,
+            ffn=cfg.sepformer_ffn,
+            layers=cfg.sepformer_layers,
+            chunk=cfg.sepformer_chunk,
+            blocks=cfg.sepformer_blocks,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        )
+        return model.to(device)
     if cfg.variant == "dprnn":
         model = DPRNN(
             num_speakers=cfg.num_speakers,
@@ -129,7 +149,7 @@ def _optimizer(cfg, steps_per_epoch: int):
             warmup_steps=cfg.lr_warmup_steps,
             grad_clip_norm=cfg.grad_clip_norm,
         )
-    if cfg.variant in ("tasnet", "dprnn"):
+    if cfg.variant in TIME_DOMAIN:
         return train.adam(cfg.learning_rate, grad_clip_norm=cfg.grad_clip_norm)
     return train.exponential_decay_adam(
         cfg.learning_rate, cfg.lr_decay_steps, cfg.lr_decay_rate,
@@ -256,6 +276,11 @@ def cmd_train(args) -> None:
     if cfg.pack and cfg.variant != "blstm":
         raise SystemExit("error: pack=true is only supported for the blstm variant")
     device = _device(args.device)
+    if cfg.variant == "sepformer" and device.type == "cuda" and not cfg.bf16_compute:
+        raise SystemExit(
+            "error: a sepformer model's attention runs in SDPA's flash kernel, which takes bf16: "
+            "set bf16_compute=true to train it on the GPU (or pass --device cpu for fp32)"
+        )
     model = _build_model(cfg, device)
     root = pathlib.Path(cfg.data_root)
     compute_dtype = torch.bfloat16 if cfg.bf16_compute else None
@@ -313,7 +338,7 @@ def cmd_train(args) -> None:
             for split, shuffle in ((cfg.train_split, True), (cfg.val_split, False))
         )
         steps_per_epoch = max(1, len(train_loader.names) // cfg.batch_size)
-        if cfg.variant in ("tasnet", "dprnn"):
+        if cfg.variant in TIME_DOMAIN:
             pallas_trunk = cfg.variant == "tasnet" and cfg.tasnet_pallas_trunk
             train_step, eval_step = train.make_time_domain_steps(
                 model,
@@ -391,7 +416,7 @@ def cmd_separate(args) -> None:
 
     device = _device(args.device)
     cfg, model = _restore_upit(args.checkpoint_dir, device)
-    if cfg.variant in ("tasnet", "dprnn"):
+    if cfg.variant in TIME_DOMAIN:
         _separate_time_domain(cfg, model, args, device)
         return
     written = separate_directory(
@@ -410,7 +435,7 @@ def cmd_separate(args) -> None:
 
 
 def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
-    """Conv-TasNet or DPRNN-TasNet serving of a split (the JAX
+    """Conv-TasNet, DPRNN-TasNet or SepFormer serving of a split (the JAX
     ``_separate_time_domain``'s full-utterance and chunked branches)."""
     import copy
 
@@ -421,17 +446,21 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
     from .ops.quant import dequant_i16, dequantize_estimates_i16, quantize_estimates_i16
 
     use_kernel = args.kernel == "pallas"
-    dprnn = cfg.variant == "dprnn"
-    if dprnn and use_kernel:
+    dual_path = cfg.variant in ("dprnn", "sepformer")
+    if dual_path and use_kernel:
         raise SystemExit(
-            "error: --kernel pallas runs Conv-TasNet's TCN trunk kernel; a dprnn checkpoint "
-            "runs its module, its recurrences in the lstm_recurrence kernel (use --kernel xla, "
-            "the default, and --bf16 for bf16)"
+            f"error: --kernel pallas runs Conv-TasNet's TCN trunk kernel; a {cfg.variant} "
+            "checkpoint runs its module (use --kernel xla, the default, and --bf16 for bf16)"
         )
-    if dprnn and args.streaming_hop_seconds:
+    if dual_path and args.streaming_hop_seconds:
         raise SystemExit(
-            "error: --streaming-hop-seconds streams Conv-TasNet checkpoints; a dprnn checkpoint "
-            "is separated whole or in overlapped chunks (--chunk-seconds)"
+            f"error: --streaming-hop-seconds streams Conv-TasNet checkpoints; a {cfg.variant} "
+            "checkpoint is separated whole or in overlapped chunks (--chunk-seconds)"
+        )
+    if cfg.variant == "sepformer" and device.type == "cuda" and not args.bf16:
+        raise SystemExit(
+            "error: a sepformer checkpoint's attention runs in SDPA's flash kernel, which takes "
+            "bf16: pass --bf16 (or --device cpu for fp32)"
         )
     if use_kernel and cfg.tasnet_causal:
         raise SystemExit(
@@ -440,10 +469,11 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
             "Use --kernel xla."
         )
     model.eval()
-    if dprnn:
-        from .models.dprnn import serving_fn
+    if dual_path:
+        from .models import dprnn, sepformer
 
-        base = serving_fn(model, bf16=args.bf16)
+        serving = {"dprnn": dprnn, "sepformer": sepformer}[cfg.variant]
+        base = serving.serving_fn(model, bf16=args.bf16)
     elif use_kernel:
         # the trunk kernel pads nothing: pad to the encoder stride, trim after
         from .models.tasnet_serving import cuda_apply

@@ -1,8 +1,9 @@
-"""Models as ``nn.Module``s: the uPIT BLSTM, Conv-TasNet and DPRNN-TasNet
-separators, with Conv-TasNet's folded serving and kernel training paths, and
-the VQ-VAE codec family with its quantizers."""
+"""Models as ``nn.Module``s: the uPIT BLSTM, Conv-TasNet, DPRNN-TasNet and
+SepFormer separators, with Conv-TasNet's folded serving and kernel training
+paths, and the VQ-VAE codec family with its quantizers."""
 
 from .dprnn import DPRNN
+from .sepformer import SepFormer
 from .tasnet import ConvTasNet
 from .tasnet_serving import cuda_apply, fused_apply, train_apply
 from .upit import UPitBlstm
@@ -20,6 +21,7 @@ __all__ = [
     "DPRNN",
     "GumbelSoftmax",
     "ResidualVectorQuantizer",
+    "SepFormer",
     "UPitBlstm",
     "VectorQuantizer",
     "VqVaeCodebook",

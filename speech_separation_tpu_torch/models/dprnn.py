@@ -28,6 +28,9 @@ Conv-TasNet does; each LSTM has one bias a gate (Keras's layout); gLN sees the
 padded item, zeros past an utterance's end included, as in Conv-TasNet's
 serving; the mask is a sigmoid (the paper fixes none).
 
+SepFormer (``models/sepformer.py``) shares the chunking, the overlap-add and
+the block's scaffold (:class:`_DualPathBlock`: half, gLN, residual).
+
 Submodules: ``encoder``, ``input_norm``, ``input_proj``,
 ``dp_{i}.{intra,inter}_{rnn,proj,norm}``, ``mask_prelu``, ``mask_proj``,
 ``decoder``, with Conv-TasNet's flax layouts. Tensors are channels-last; the
@@ -76,6 +79,36 @@ def overlap_add(y: torch.Tensor, frames: int) -> torch.Tensor:
 
 
 class _DualPathBlock(nn.Module):
+    """The dual-path scaffold over ``x [B, S, K, N]``: the intra half over the
+    K frames of every chunk (rows ``B·S``), then the inter half over the S
+    chunks at every chunk position (rows ``B·K``), each followed by gLN over
+    the whole item (``{part}_norm``) and the residual. A subclass registers
+    each half's modules and the two norms, gives :meth:`half`, and names the
+    two profiler spans in ``spans``."""
+
+    spans: tuple[str, str]
+
+    def half(self, part: str, x: torch.Tensor) -> torch.Tensor:
+        """One half over rows ``x [R, L, N]`` → ``[R, L, N]``."""
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, K, N]
+        b, s, k, n = x.shape
+        with span(self.spans[0]):
+            y = self.half("intra", x.reshape(b * s, k, n))
+            x = x + self.intra_norm(y.view(b, s * k, n)).view(b, s, k, n)
+        with span(self.spans[1]):
+            y = self.half("inter", x.transpose(1, 2).reshape(b * k, s, n))
+            y = self.inter_norm(y.view(b, k * s, n)).view(b, k, s, n)
+            x = x + y.transpose(1, 2)
+        return x
+
+
+class _RecurrentBlock(_DualPathBlock):
+    """DPRNN's block: each half a BiLSTM and a Linear(2·hidden → N)."""
+
+    spans = ("dprnn.intra", "dprnn.inter")
+
     def __init__(self, channels: int, hidden: int, generator):
         super().__init__()
         for part in ("intra", "inter"):
@@ -83,21 +116,9 @@ class _DualPathBlock(nn.Module):
             self.add_module(f"{part}_proj", _Conv(1, 2 * hidden, channels, generator))
             self.add_module(f"{part}_norm", _Norm(channels))
 
-    def _half(self, part: str, x: torch.Tensor) -> torch.Tensor:
-        """One half over rows ``x [R, L, N]``: BiLSTM, Linear, ``[R, L, N]``."""
+    def half(self, part: str, x: torch.Tensor) -> torch.Tensor:
         y = getattr(self, f"{part}_rnn")(x)
         return getattr(self, f"{part}_proj").pointwise(y)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, K, N]
-        b, s, k, n = x.shape
-        with span("dprnn.intra"):
-            y = self._half("intra", x.reshape(b * s, k, n))
-            x = x + self.intra_norm(y.view(b, s * k, n)).view(b, s, k, n)
-        with span("dprnn.inter"):
-            y = self._half("inter", x.transpose(1, 2).reshape(b * k, s, n))
-            y = self.inter_norm(y.view(b, k * s, n)).view(b, k, s, n)
-            x = x + y.transpose(1, 2)
-        return x
 
 
 class DPRNN(nn.Module):
@@ -123,7 +144,7 @@ class DPRNN(nn.Module):
         self.input_norm = _Norm(enc_dim)
         self.input_proj = _Conv(1, enc_dim, bottleneck, generator)
         for i in range(blocks):
-            self.add_module(f"dp_{i}", _DualPathBlock(bottleneck, hidden, generator))
+            self.add_module(f"dp_{i}", _RecurrentBlock(bottleneck, hidden, generator))
         self.mask_prelu = _PReLU()
         self.mask_proj = _Conv(1, bottleneck, num_speakers * enc_dim, generator)
         self.decoder = _Conv(win, enc_dim, 1, generator)

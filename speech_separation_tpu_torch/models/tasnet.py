@@ -132,19 +132,21 @@ def depthwise(y: torch.Tensor, kernel: torch.Tensor, dilation: int, causal: bool
 
 
 class _Conv(nn.Module):
-    """flax ``nn.Conv`` parameters: ``kernel [width, in/groups, out]``, ``bias [out]``."""
+    """flax ``nn.Conv`` parameters: ``kernel [width, in/groups, out]``, ``bias
+    [out]`` (``None`` with ``bias=False``)."""
 
-    def __init__(self, width: int, in_per_group: int, out: int, generator=None):
+    def __init__(self, width: int, in_per_group: int, out: int, generator=None, bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(width, in_per_group, out))
-        self.bias = nn.Parameter(torch.zeros(out))
+        self.bias = nn.Parameter(torch.zeros(out)) if bias else None
         _lecun_normal_(self.kernel, width * in_per_group, generator)
 
     def pointwise(self, x: torch.Tensor) -> torch.Tensor:
         """1×1 conv over channels-last ``x``: ``x @ kernel[0] + bias``."""
-        return torch.addmm(self.bias, x.reshape(-1, x.shape[-1]), self.kernel[0]).view(
-            *x.shape[:-1], -1
-        )
+        flat = x.reshape(-1, x.shape[-1])
+        if self.bias is None:
+            return (flat @ self.kernel[0]).view(*x.shape[:-1], -1)
+        return torch.addmm(self.bias, flat, self.kernel[0]).view(*x.shape[:-1], -1)
 
 
 class _Norm(nn.Module):

@@ -2,9 +2,10 @@
 ``utils/config.py``).
 
 :class:`UPitTrainConfig` keeps the JAX package's field names and defaults, so
-one ``cfg.json`` configures either package (the ``dprnn_*`` fields are the
-port's own). ``variant`` is ``"blstm"``, ``"tasnet"`` or ``"dprnn"``
-(DPRNN-TasNet, ``models/dprnn.py``), each served and trained
+one ``cfg.json`` configures either package (the ``dprnn_*`` and
+``sepformer_*`` fields are the port's own). ``variant`` is ``"blstm"``,
+``"tasnet"``, ``"dprnn"`` (DPRNN-TasNet, ``models/dprnn.py``) or
+``"sepformer"`` (SepFormer, ``models/sepformer.py``), each served and trained
 (``tasnet_pallas_trunk`` trains
 Conv-TasNet through the trunk's training kernels; ``pack`` trains the BLSTM
 on sequence-packed rows; ``dynamic_mix`` remixes the training stream every
@@ -58,7 +59,7 @@ class UPitTrainConfig:
     data_root: str = "./mycode/wsj0_2mix/use_this"
     train_split: str = "tr"
     val_split: str = "cv"
-    variant: str = "blstm"  # "blstm", "tasnet" or "dprnn" in the port; "conv" waits
+    variant: str = "blstm"  # "blstm", "tasnet", "dprnn" or "sepformer" in the port; "conv" waits
     batch_size: int = 2
     epochs: int = 5
     patience: int = 50
@@ -95,6 +96,14 @@ class UPitTrainConfig:
     dprnn_hidden: int = 128
     dprnn_chunk: int = 250
     dprnn_blocks: int = 6
+    sepformer_enc_dim: int = 256
+    sepformer_win: int = 16
+    sepformer_d_model: int = 256
+    sepformer_heads: int = 8
+    sepformer_ffn: int = 1024
+    sepformer_layers: int = 8
+    sepformer_chunk: int = 250
+    sepformer_blocks: int = 2
     checkpoint_dir: str = "./CKPT"
     seed: int = 42
     stft: StftConfig = field(default_factory=StftConfig)
@@ -102,8 +111,10 @@ class UPitTrainConfig:
 
     def __post_init__(self) -> None:
         unserved = []
-        if self.variant not in ("blstm", "tasnet", "dprnn"):
-            unserved.append(f"variant={self.variant!r} (only 'blstm', 'tasnet' and 'dprnn')")
+        if self.variant not in ("blstm", "tasnet", "dprnn", "sepformer"):
+            unserved.append(
+                f"variant={self.variant!r} (only 'blstm', 'tasnet', 'dprnn' and 'sepformer')"
+            )
         if self.dynamic_mix and self.pack:
             # the JAX CLI drops dynamic mixing under pack without a word; the
             # port says so instead

@@ -1236,3 +1236,122 @@ def test_vector_quantizers_on_the_card_launch_the_kernel(cuda_device):
             plain = model.codes(frames)
     assert nearest_code.launches == before + 2 + 2  # 2 deep stages, 2 skip stages of pq 4 each
     assert torch.equal(deep, plain[0]) and torch.equal(skip, plain[1])
+
+
+# SepFormer's attention on the card: SDPA's flash kernel against the plain
+# version on the same bf16 inputs. Both compute the scores in fp32; flash
+# rounds the softmax's probabilities to bf16 before the product with V (2^-9
+# relative) and sums in another order, so the output differs by a few bf16
+# ulps of values near 1.
+FLASH_REL = 1e-2
+
+
+def _heads(sequences, length, seed, dtype=torch.bfloat16, head_dim=32, device="cuda"):
+    return [_normal((sequences, 8, length, head_dim), seed=seed + i).to(device, dtype)
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("sequences,length", [(1_296, 250), (4_000, 81), (3, 7)])
+def test_flash_attention_matches_plain(cuda_device, sequences, length):
+    from speech_separation_tpu_torch.ops.attention import attention, attention_plain
+
+    q, k, v = _heads(sequences, length, 200, device=cuda_device)
+    got = attention(q, k, v)
+    want = attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _rel(got, want) <= FLASH_REL
+    # the head-split views the transformer layer passes (strided, not contiguous)
+    qkv = _normal((sequences, length, 3, 8, 32), seed=203).to(cuda_device, torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    assert _rel(attention(q, k, v), attention_plain(q, k, v)) <= FLASH_REL
+
+
+def test_attention_runs_only_the_flash_kernel(cuda_device):
+    """A call dispatches SDPA's flash op and none of another backend's (the
+    math backend's products and softmax, the efficient or cuDNN kernels); an
+    input flash refuses raises and dispatches none of them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from speech_separation_tpu_torch.ops.attention import attention
+
+    class Dispatched(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    q, k, v = _heads(64, 250, 210, device=cuda_device)
+    def other_backends(ops):
+        return [op for op in ops if any(w in op for w in ("bmm", "softmax", "efficient", "cudnn"))]
+
+    with Dispatched() as seen:
+        out = attention(q, k, v)
+    assert "aten._scaled_dot_product_flash_attention.default" in seen.ops, seen.ops
+    assert not other_backends(seen.ops), seen.ops
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    fp32 = [t.float() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="bf16 or fp16"), Dispatched() as seen:
+        attention(*fp32)
+    assert seen.ops == []
+    wide = _heads(2, 16, 211, head_dim=512, device=cuda_device)  # flash takes heads up to 256
+    with pytest.raises(RuntimeError), Dispatched() as seen:
+        attention(*wide)
+    assert not other_backends(seen.ops) and not [op for op in seen.ops if "attention" in op]
+
+
+def test_sepformer_serving_matches_the_reference(cuda_device):
+    """``serving_fn(bf16=True)`` at the published widths on 2 × 4 s against
+    the benchmark's fp32 reference, within the cell's ``est_rel_err`` limit;
+    the fp32 module refuses to run its attention outside flash."""
+    import json
+
+    from bench_torch.reference import sepformer as reference
+    from speech_separation_tpu_torch.models.sepformer import SepFormer, serving_fn
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "bench_torch"
+    cfg = json.loads((root / "configs" / "sepformer.json").read_text())
+    limit = json.loads((root / "limits" / "sepformer_separate.json").read_text())["est_rel_err"]
+    weights = reference.make_weights(cfg, 2**31 + 41, cuda_device)
+    model = SepFormer().to(cuda_device)
+    model.load_state_dict(weights)
+    mix = _normal((2, 32_000), seed=212).to(cuda_device)
+    got = serving_fn(model, bf16=True)(mix)
+    want = reference.separate(weights, cfg, mix)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, 2, 32_000)
+    for r in range(2):
+        assert _rel(got[r], want[r]) <= limit
+    with pytest.raises(ValueError, match="bf16 or fp16"):
+        serving_fn(model)(mix)
+    with plain_versions():  # the plain attention serves fp32 on the card
+        assert _rel(serving_fn(model)(mix), want) <= 1e-4
+
+
+def test_sepformer_trains_through_flash_in_bf16(cuda_device):
+    """The SI-SDR PIT step's gradients with bf16 products, the attention's
+    backward in flash: as near the fp32 gradients as the same step with the
+    plain attention (both round every product's operands to bf16; a wrong
+    backward would be off by its whole size)."""
+    from speech_separation_tpu_torch.losses import pit_si_sdr_loss
+    from speech_separation_tpu_torch.models.sepformer import SepFormer
+
+    toy = dict(num_speakers=2, enc_dim=64, win=16, d_model=64, heads=2, ffn=128, layers=2,
+               chunk=50, blocks=1)
+    model = SepFormer(**toy, generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    mix = _normal((2, 8_000), seed=213).to(cuda_device)
+    sources = _normal((2, 2, 8_000), seed=214).to(cuda_device)
+    lengths = torch.tensor([8_000, 6_000])
+
+    def grads(dtype):
+        params = {n: p.to(dtype) for n, p in model.named_parameters()}
+        est = torch.func.functional_call(model, params, (mix,))
+        loss = pit_si_sdr_loss(est.float(), sources, lengths)
+        return torch.autograd.grad(loss, list(model.parameters()))
+
+    flash = grads(torch.bfloat16)
+    with plain_versions():
+        plain, want = grads(torch.bfloat16), grads(torch.float32)
+    for f, p, w in zip(flash, plain, want):
+        assert torch.isfinite(f).all() and _rel(f, w) <= max(2 * _rel(p, w), 2e-2)
