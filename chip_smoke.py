@@ -183,6 +183,17 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    on that batch: fp32 against the plain reference within the
    ``dprnn_separate`` cell's ``est_rel_err`` limit, 6 × (6 + 2) = 48
    recurrence launches a call, bf16 against it in dB, and ms a batch.
+25. SepFormer's fused residual add and LayerNorm
+   (``ops/layer_norm_cuda.py``, ``csrc/residual_layer_norm.cu``; no TPU
+   kernel) at a 16 × 10 s batch's 324,000 token rows of d = 256, in the three
+   forms a transformer stack launches (the first norm, an add to bf16 rows,
+   the last add to fp32 rows): against its plain version (the sum bit for
+   bit, fp32 rows within 1e-6 relative L2, bf16 rows within one bf16 ulp),
+   reruns bit-identical, then timed beside its byte bound and beside
+   PyTorch's add, LayerNorm and cast (``library_ms``); then
+   ``models.sepformer.serving_fn(bf16=True)`` at the published widths on
+   2 × 4 s with one fused launch a norm, 2 × 2 × 17 a call, and none of
+   PyTorch's LayerNorm.
 
 Phase 15 also holds the search's NaN picks: a NaN score orders below every
 number, so a row holding one gets its first NaN's index, as ``torch.argmin``
@@ -198,7 +209,7 @@ against 4 (N D + D K + N) bytes); and the time of one PyTorch call computing
 the same function where there is one (``torch.stft``, cuDNN ``nn.LSTM``),
 used nowhere in the port.
 
-Phases run in the order 1 to 19, 21 to 24, then 20. The kernels line gives
+Phases run in the order 1 to 19, 21 to 25, then 20. The kernels line gives
 each kernel's launches on the dynamic-mixing path of phase 21
 (``launches_dynamic_mix``) and the trunk kernel's on the window streaming
 path of phase 22 (``launches_streaming``, ``launches_streaming_cli``) with its
@@ -327,6 +338,8 @@ PROFILED_CALLS = 5  # calls a streaming engine makes under the profiler, per mea
 # BiLSTMs; bf16 serving held against the fp32 reference in dB
 DPRNN_BATCH, DPRNN_SECONDS = 16, 10.0
 DPRNN_ROWS = ((16 * 641, 250), (16 * 250, 641))
+# SepFormer's token rows in a 16 x 10 s batch: 16 items x 81 chunks x K = 250, d = 256
+NORM_ROWS, NORM_DIM = 16 * 81 * 250, 256
 DPRNN_BF16_DB = 20.0
 # NVIDIA H100 SXM: HBM bytes/s, dense bf16 tensor-core and fp32 FLOP/s
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
@@ -652,6 +665,8 @@ def main() -> int:
     stateful_streaming_phases(device, kept)
     torch.cuda.empty_cache()
     dprnn = dprnn_phases(device, gen)
+    torch.cuda.empty_cache()
+    norm = sepformer_phases(device, gen)
     scoring_phases(device, kept)
     kept_dir.cleanup()
     for entry in train:  # rows 3 and 4: their keep-mode launches on the packed path
@@ -708,6 +723,7 @@ def main() -> int:
         tasnet,
         *tasnet_train,
         codec,
+        norm,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
@@ -2913,6 +2929,108 @@ def dprnn_phases(device, gen) -> dict:
         del got
     out["serve_launches"] = expected
     del model, weights, want, mix
+    torch.cuda.empty_cache()
+    return out
+
+
+def sepformer_phases(device, gen) -> dict:
+    """Phase 25; returns the fused residual add and LayerNorm's entry for the
+    kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from bench_torch.reference import sepformer as reference
+    from speech_separation_tpu_torch.models.sepformer import SepFormer, serving_fn
+    from speech_separation_tpu_torch.ops.layer_norm_cuda import (
+        residual_layer_norm,
+        residual_layer_norm_plain,
+    )
+
+    rows, d = NORM_ROWS, NORM_DIM
+    bf16, fp32 = torch.bfloat16, torch.float32
+    x = 3 * torch.randn(rows, d, generator=gen, device=device) + 0.5
+    y = torch.randn(rows, d, generator=gen, device=device).to(bf16)
+    gamma = 1 + 0.2 * torch.randn(d, generator=gen, device=device)
+    beta = torch.randn(d, generator=gen, device=device)
+    out = {"name": "residual_layer_norm", "route": "cuda",
+           "source": "speech_separation_tpu_torch/csrc/residual_layer_norm.cu",
+           "replaces": None, "rows": rows, "dim": d}
+    # (form, branch, rows' dtype, compulsory bytes an element)
+    forms = (("norm_bf16", None, bf16, 4 + 2), ("add_bf16", y, bf16, 4 + 2 + 4 + 2),
+             ("add_fp32", y, fp32, 4 + 2 + 4 + 4))
+    for form, branch, dt, per in forms:
+        want_sum, want = residual_layer_norm_plain(x, branch, gamma, beta, dt)
+        with torch.inference_mode():
+            runs = [residual_layer_norm(x.clone(), branch, gamma, beta, dt) for _ in range(2)]
+        torch.cuda.synchronize()
+        (got_sum, got), (again_sum, again) = runs
+        g, w = got.float(), want.float()
+        if dt == fp32:
+            err, lim = rel_l2(got, want), 1e-6
+        else:  # bf16 ulps of the larger value, at least 2^-8 (tests/test_torch_cuda.py)
+            top = torch.maximum(torch.maximum(g.abs(), w.abs()), torch.full_like(g, 2.0**-8))
+            _, e = torch.frexp(top)
+            err, lim = ((g - w).abs() / torch.ldexp(torch.ones_like(g), e - 8)).max().item(), 1.0
+        same = torch.equal(got_sum, want_sum) and torch.equal(again_sum, got_sum) and torch.equal(
+            again, got)
+        if not (err <= lim and same):
+            raise AssertionError(f"residual_layer_norm {form} {rows} x {d}: error {err} (bound "
+                                 f"{lim}), sum and reruns bit-identical {same}")
+        del runs, got_sum, got, again_sum, again, g, w, want_sum, want
+        stream = x.clone()
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: residual_layer_norm(stream, branch, gamma, beta, dt), iters=50,
+                         warmup=3)
+        del stream
+        entry = bound(per * rows * d, 8 * rows * d, FP32_FLOPS)
+        out[form] = {"err": err, "ms": ms, **entry, "bound_share": 100 * entry["bound_ms"] / ms}
+        phase("sepformer-norm", f"residual_layer_norm {form} {rows} x {d}: "
+              + ("rel L2 " if dt == fp32 else "bf16 ulps ") + f"{err:.3g} <= {lim} against the "
+              f"plain version, x + y and reruns bit-identical; {ms:.4f} ms a call, bound "
+              f"{entry['bound_ms']:.4f} ms ({per} B an element, {entry['bound_by']}), "
+              f"{out[form]['bound_share']:.1f}% of it")
+
+    def library():  # what the port ran before: the add, PyTorch's LayerNorm, the cast
+        s = x + y
+        return F.layer_norm(s, (d,), gamma, beta, 1e-6).to(bf16)
+
+    with torch.inference_mode():
+        lib_ms = cuda_ms(library, iters=50, warmup=3)
+    add = out["add_bf16"]  # the form of 15 of a stack's 17 launches
+    out.update({"ms": add["ms"], "bound_ms": add["bound_ms"], "bound_by": add["bound_by"],
+                "bound_share": add["bound_share"], "plain_ms": lib_ms, "library_ms": lib_ms})
+    phase("sepformer-norm", f"x + y, F.layer_norm, .to(bf16) {rows} x {d} (the plain version, "
+          f"three launches): {lib_ms:.4f} ms, {lib_ms / add['ms']:.2f}x the kernel's")
+    del x, y
+
+    root = pathlib.Path(__file__).resolve().parent
+    cfg = json.loads((root / "bench_torch" / "configs" / "sepformer.json").read_text())
+    limit = json.loads((root / "bench_torch" / "limits" / "sepformer_separate.json").read_text())
+    weights = reference.make_weights(cfg, 3, device)
+    with torch.device("meta"):
+        model = SepFormer()
+    model = model.to_empty(device=device)
+    model.load_state_dict(weights)
+    mix = 0.1 * torch.randn(2, 32_000, generator=gen, device=device)
+    serve = serving_fn(model, bf16=True)
+    expected = cfg["blocks"] * 2 * (1 + 2 * cfg["layers"])
+    before = residual_layer_norm.launches
+    with counting_calls(F, "layer_norm") as torch_norms:
+        got = serve(mix)
+    torch.cuda.synchronize()
+    launched = residual_layer_norm.launches - before
+    want = reference.separate(weights, cfg, mix)
+    err = max(rel_l2(got[r], want[r]) for r in range(got.shape[0]))
+    if launched != expected or torch_norms[0] or err > limit["est_rel_err"]:
+        raise AssertionError(f"SepFormer serving_fn bf16: {launched} fused launches for "
+                             f"{expected}, {torch_norms[0]} F.layer_norm calls, worst rel L2 "
+                             f"{err} (limit {limit['est_rel_err']})")
+    out.update({"launches": launched, "serve_rel_err": err})
+    phase("sepformer-norm", f"serving_fn bf16 (published widths) 2 x 4 s: {launched} fused "
+          f"launches a call ({cfg['blocks']} blocks x 2 halves x (1 + 2 x {cfg['layers']})), no "
+          f"F.layer_norm; worst rel L2 {err:.3e} against the fp32 reference (<= "
+          f"{limit['est_rel_err']})")
+    del model, weights, mix, got, want
     torch.cuda.empty_cache()
     return out
 

@@ -72,6 +72,8 @@ _SIGNATURES = {
     # flat, codebook, out, rows, ld, groups, dim, codes, ctas, resident, smem,
     # stream
     "sst_nearest_code": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, stream
+    "sst_residual_layer_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

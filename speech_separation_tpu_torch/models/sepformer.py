@@ -33,7 +33,10 @@ mask product and the decoder are fp32. Each product (every Linear and 1×1
 conv, and through them the attention) runs in its weights' dtype:
 :func:`serving_fn` with ``bf16`` casts those weights, and the attention then
 runs in SDPA's flash kernel on a GPU (``ops/attention.py``; fp32 there is
-refused, not served in another backend).
+refused, not served in another backend). Each residual add and the
+LayerNorm after it are one call (``ops/layer_norm_cuda.py``), which writes
+the normed rows straight in the dtype of the product that reads them; on a
+GPU with autograd off it is one hand-written kernel.
 
 Submodules: ``encoder``, ``input_norm``, ``input_proj``,
 ``dp_{i}.{intra,inter}.layer_{j}.{attn_norm,attn_in,attn_out,ffn_norm,ffn_in,ffn_out}``,
@@ -52,13 +55,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..ops.layer_norm_cuda import residual_layer_norm
 from ..utils.profiling import span
 from .dprnn import _DualPathBlock, overlap_add, segment
 from .tasnet import _Conv, _Norm, _PReLU, decode, encode
 
 __all__ = ["SepFormer", "positional_encoding", "products_in_bf16", "serving_fn"]
-
-LN_EPS = 1e-6
 
 
 def positional_encoding(length: int, channels: int, device=None) -> torch.Tensor:
@@ -79,20 +81,27 @@ def _product(conv: _Conv, x: torch.Tensor) -> torch.Tensor:
 
 
 class _LayerNorm(nn.Module):
-    """LayerNorm over the last axis, eps 1e-6, in fp32 (the result too)."""
+    """LayerNorm over the last axis, eps 1e-6, statistics in fp32, fused with
+    the residual add before it (``ops/layer_norm_cuda.py``)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.gamma.shape, self.gamma.float(), self.beta.float(),
-                            LN_EPS)
+    def forward(self, x: torch.Tensor, y: torch.Tensor | None, out_dtype: torch.dtype):
+        """``(x + y, LN(x + y))`` over the fp32 stream ``x`` and a branch
+        ``y`` (None: ``(x, LN(x))``), the normed rows in ``out_dtype``."""
+        return residual_layer_norm(x, y, self.gamma, self.beta, out_dtype)
 
 
 class _TransformerLayer(nn.Module):
-    """Pre-LN: x + MHA(LN(x)), then x + FFN(LN(x)), over ``x [R, L, d]`` fp32."""
+    """Pre-LN: x + MHA(LN(x)), then x + FFN(LN(x)), over ``x [R, L, d]`` fp32.
+
+    Each residual add is fused with the LayerNorm after it, so the layer
+    takes the stream with its ``attn_norm`` rows already made and gives the
+    stream with the rows of ``next_norm`` (the next layer's ``attn_norm``, or
+    the stack's final norm) in ``next_dtype``."""
 
     def __init__(self, d_model: int, heads: int, ffn: int, generator):
         super().__init__()
@@ -104,14 +113,15 @@ class _TransformerLayer(nn.Module):
         self.ffn_in = _Conv(1, d_model, ffn, generator)
         self.ffn_out = _Conv(1, ffn, d_model, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: torch.Tensor, next_norm: _LayerNorm,
+                next_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
         r, length, d = x.shape
-        qkv = _product(self.attn_in, self.attn_norm(x)).view(r, length, 3, self.heads, d // self.heads)
+        qkv = _product(self.attn_in, h).view(r, length, 3, self.heads, d // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # each [R, heads, L, d / heads]
         y = attention(q, k, v).transpose(1, 2).reshape(r, length, d)
-        x = x + _product(self.attn_out, y)
-        h = torch.relu(_product(self.ffn_in, self.ffn_norm(x)))
-        return x + _product(self.ffn_out, h)
+        x, h = self.ffn_norm(x, _product(self.attn_out, y), self.ffn_in.kernel.dtype)
+        h = torch.relu(_product(self.ffn_in, h))
+        return next_norm(x, _product(self.ffn_out, h), next_dtype)
 
 
 class _TransformerStack(nn.Module):
@@ -126,9 +136,16 @@ class _TransformerStack(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [R, L, d] → fp32 [R, L, d]
         x = x.float() + positional_encoding(x.shape[1], x.shape[2], x.device)
-        for j in range(self.layers):
-            x = getattr(self, f"layer_{j}")(x)
-        return self.norm(x)
+        layers = [getattr(self, f"layer_{j}") for j in range(self.layers)]
+        # each LN's rows in the dtype of what reads them: an in-projection's
+        # weights, or (the final norm) gLN's fp32
+        norms = [(layer.attn_norm, layer.attn_in.kernel.dtype) for layer in layers]
+        norms.append((self.norm, torch.float32))
+        norm, dtype = norms[0]
+        x, h = norm(x, None, dtype)
+        for layer, (norm, dtype) in zip(layers, norms[1:]):
+            x, h = layer(x, h, norm, dtype)
+        return h
 
 
 class _TransformerBlock(_DualPathBlock):

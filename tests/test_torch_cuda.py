@@ -12,6 +12,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from speech_separation_tpu_torch.data.datasets import WaveformLoader
 from speech_separation_tpu_torch.data.fixture import make_synthetic_fixture
@@ -1266,22 +1267,23 @@ def test_flash_attention_matches_plain(cuda_device, sequences, length):
     assert _rel(attention(q, k, v), attention_plain(q, k, v)) <= FLASH_REL
 
 
+class Dispatched(TorchDispatchMode):
+    """Records the name of every aten op dispatched while it is entered."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
 def test_attention_runs_only_the_flash_kernel(cuda_device):
     """A call dispatches SDPA's flash op and none of another backend's (the
     math backend's products and softmax, the efficient or cuDNN kernels); an
     input flash refuses raises and dispatches none of them."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from speech_separation_tpu_torch.ops.attention import attention
-
-    class Dispatched(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops.append(str(func))
-            return func(*args, **(kwargs or {}))
 
     q, k, v = _heads(64, 250, 210, device=cuda_device)
     def other_backends(ops):
@@ -1355,3 +1357,112 @@ def test_sepformer_trains_through_flash_in_bf16(cuda_device):
         plain, want = grads(torch.bfloat16), grads(torch.float32)
     for f, p, w in zip(flash, plain, want):
         assert torch.isfinite(f).all() and _rel(f, w) <= max(2 * _rel(p, w), 2e-2)
+
+
+# The fused residual add and LayerNorm against its plain version (x +
+# y.float(), PyTorch's LayerNorm, a cast) on the same inputs. x + y is one fp32
+# add on both sides: bit-identical. The statistics are summed in other orders
+# (a warp's two passes over registers against PyTorch's Welford), so fp32 rows
+# differ by a few fp32 ulps of their terms, and a bf16 row may round the other
+# way where its fp32 value lies at a rounding boundary: one bf16 ulp. Near
+# zero, where the centred term cancels against beta (|beta| up to ~5 here),
+# those few fp32 ulps of the terms (~1e-6) exceed a bf16 ulp of the result, so
+# the ulp is taken at no less than LN_BF16_FLOOR (a bf16 ulp of 3e-5 there).
+LN_FP32_REL = 1e-6
+LN_BF16_FLOOR = 2.0**-8
+
+
+def _bf16_ulps(got, want) -> float:
+    """The largest |got - want| in bf16 ulps of the larger of |got|, |want|
+    and ``LN_BF16_FLOOR``."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(torch.maximum(g.abs(), w.abs()),
+                                     torch.full_like(g, LN_BF16_FLOOR)))
+    return ((g - w).abs() / torch.ldexp(torch.ones_like(g), e - 8)).max().item()
+
+
+@pytest.mark.parametrize("branch,out", [(torch.bfloat16, torch.bfloat16),
+                                        (torch.bfloat16, torch.float32),
+                                        (None, torch.bfloat16)],
+                         ids=["add_bf16", "add_fp32", "norm_bf16"])
+@pytest.mark.parametrize("rows", [1, 31, 324_000])
+@pytest.mark.parametrize("dim", [256, 64])
+def test_residual_layer_norm_matches_plain(cuda_device, dim, rows, branch, out):
+    from speech_separation_tpu_torch.ops.layer_norm_cuda import (
+        residual_layer_norm,
+        residual_layer_norm_plain,
+    )
+
+    x = (3 * _normal((rows, dim), seed=220) + 0.5).to(cuda_device)
+    y = None if branch is None else _normal((rows, dim), seed=221).to(cuda_device, branch)
+    gamma = (1 + 0.2 * _normal((dim,), seed=222)).to(cuda_device)
+    beta = _normal((dim,), seed=223).to(cuda_device)
+    want_sum, want = residual_layer_norm_plain(x, y, gamma, beta, out)
+    runs = []
+    with torch.inference_mode():
+        for dtype in (out, out, torch.float32):
+            stream = x.clone()
+            before = residual_layer_norm.launches
+            got_sum, got = residual_layer_norm(stream, y, gamma, beta, dtype)
+            assert got_sum is stream and residual_layer_norm.launches == before + 1
+            runs.append((got_sum, got))
+    torch.cuda.synchronize()
+    (got_sum, got), (again_sum, again), (_, got32) = runs
+    assert got.dtype == out and got.shape == x.shape
+    assert torch.equal(got_sum, want_sum)  # in place over x where y is given
+    assert torch.equal(again_sum, got_sum) and torch.equal(again, got)  # reruns bit-identical
+    assert _rel(got32, residual_layer_norm_plain(x, y, gamma, beta, torch.float32)[1]) <= LN_FP32_REL
+    if out == torch.bfloat16:
+        assert torch.equal(got, got32.to(out))  # the kernel's fp32 rows, rounded once
+        assert _bf16_ulps(got, want) <= 1.0
+
+
+def test_residual_layer_norm_refusals(cuda_device):
+    from speech_separation_tpu_torch.ops.layer_norm_cuda import (
+        MAX_DIM,
+        residual_layer_norm,
+        residual_layer_norm_plain,
+    )
+
+    wide = torch.zeros(4, MAX_DIM + 2, device=cuda_device)
+    g = torch.ones(MAX_DIM + 2, device=cuda_device)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="contiguous"):
+            residual_layer_norm(wide[:, :MAX_DIM], None, g[:MAX_DIM], g[:MAX_DIM], torch.bfloat16)
+        with pytest.raises(ValueError, match=f"1 to {MAX_DIM}"):
+            residual_layer_norm(wide, None, g, g, torch.bfloat16)
+        # the widest row it takes, an odd width (one value a chunk)
+        for d in (MAX_DIM, 255):
+            x = _normal((5, d), seed=224).to(cuda_device)
+            want = residual_layer_norm_plain(x, None, g[:d], 0 * g[:d], torch.float32)[1]
+            got = residual_layer_norm(x, None, g[:d], 0 * g[:d], torch.float32)[1]
+            assert _rel(got, want) <= LN_FP32_REL
+
+
+def test_sepformer_serving_norms_only_in_the_fused_kernel(cuda_device):
+    """A bf16 ``serving_fn`` forward dispatches no LayerNorm op of PyTorch's
+    and launches the fused kernel once a norm (blocks x 2 halves x (1 + 2 x
+    layers)); under ``plain_versions()`` PyTorch's LayerNorm runs instead, to
+    the same output within bf16 rounding."""
+    from speech_separation_tpu_torch.models.sepformer import SepFormer, serving_fn
+    from speech_separation_tpu_torch.ops.layer_norm_cuda import residual_layer_norm
+
+    toy = dict(num_speakers=2, enc_dim=64, win=16, d_model=64, heads=2, ffn=128, layers=2,
+               chunk=50, blocks=2)
+    model = SepFormer(**toy, generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    mix = _normal((2, 8_000), seed=225).to(cuda_device)
+    serve = serving_fn(model, bf16=True)
+    before = residual_layer_norm.launches
+    with Dispatched() as seen:
+        got = serve(mix)
+    torch.cuda.synchronize()
+    assert residual_layer_norm.launches - before == 2 * 2 * (1 + 2 * 2)
+    assert not [op for op in seen.ops if "layer_norm" in op], seen.ops
+    with plain_versions(), Dispatched() as seen:
+        want = serve(mix)
+    # under inference mode the mode sees aten.layer_norm before it decomposes
+    assert len([op for op in seen.ops if "layer_norm" in op]) == 2 * 2 * (1 + 2 * 2), seen.ops
+    # the two differ where a normed row rounds to the other bf16 neighbour (a
+    # fraction of the rows, one ulp each), carried through bf16 products: below
+    # the bf16 path's own distance from fp32 (~1e-2 at the published widths)
+    assert _rel(got, want) <= 2e-2

@@ -12,10 +12,12 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from scipy.io import wavfile
 from torch.profiler import ProfilerActivity, profile
 
@@ -32,7 +34,13 @@ from speech_separation_tpu_torch.models.sepformer import (
     products_in_bf16,
     serving_fn,
 )
+from speech_separation_tpu_torch.models import sepformer
+from speech_separation_tpu_torch.ops import layer_norm_cuda
 from speech_separation_tpu_torch.ops.attention import attention, attention_plain
+from speech_separation_tpu_torch.ops.layer_norm_cuda import (
+    residual_layer_norm,
+    residual_layer_norm_plain,
+)
 from speech_separation_tpu_torch.utils import UPitTrainConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -111,19 +119,26 @@ def test_bf16_serving_keeps_the_stream_and_the_ends_in_fp32():
     assert dtypes["encoder.kernel"] == dtypes["decoder.kernel"] == torch.float32
     assert dtypes["dp_0.intra.layer_0.attn_in.kernel"] == dtypes["mask_out.kernel"] == torch.bfloat16
     assert dtypes["dp_0.intra.norm.gamma"] == dtypes["dp_0.intra_norm.gamma"] == torch.float32
-    seen = {}  # the residual stream in and out of a layer and a block
+    # the residual stream in and out of a layer and a block; after the stream,
+    # a layer gives the next LN's rows: bf16 for the next in-projection, fp32
+    # for the final norm (gLN reads it)
+    seen = {}
 
     def hook(name):
         def record(module, args, out):
-            seen.setdefault(name, (args[0].dtype, out.dtype))
+            stream, *rows = out if isinstance(out, tuple) else (out,)
+            seen.setdefault(name, (args[0].dtype, stream.dtype, *(r.dtype for r in rows)))
 
         return record
 
-    for name, module in (("layer", net.dp_0.intra.layer_1), ("block", net.dp_0)):
+    for name, module in (("layer", net.dp_0.intra.layer_1), ("layer_0", net.dp_0.intra.layer_0),
+                         ("block", net.dp_0)):
         module.register_forward_hook(hook(name))
     with torch.no_grad():
         torch.testing.assert_close(net(mix), got, rtol=0, atol=0)
-    assert seen == {"layer": (torch.float32, torch.float32), "block": (torch.float32, torch.float32)}
+    f32 = torch.float32
+    assert seen == {"layer": (f32, f32, f32), "layer_0": (f32, f32, torch.bfloat16),
+                    "block": (f32, f32)}
 
 
 def test_attention_plain_is_the_written_out_product():
@@ -138,6 +153,123 @@ def test_attention_plain_is_the_written_out_product():
     assert torch.equal(attention(*args), attention_plain(*args))
     with ops.plain_versions():
         assert torch.equal(attention(*args), attention_plain(*args))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("branch", [torch.bfloat16, torch.float32, None], ids=["bf16", "fp32", "none"])
+def test_residual_layer_norm_plain_is_the_add_the_norm_and_the_cast(branch, out_dtype):
+    x = _mix((3, 5, 32), seed=20)
+    y = None if branch is None else _mix((3, 5, 32), seed=21).to(branch)
+    gamma, beta = 1 + 0.1 * _mix((32,), seed=22), _mix((32,), seed=23)
+    want_sum = x if y is None else x + y.float()
+    want = F.layer_norm(want_sum, (32,), gamma, beta, 1e-6).to(out_dtype)
+    got_sum, got = residual_layer_norm_plain(x, y, gamma, beta, out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got_sum, want_sum) and torch.equal(got, want)
+    assert (got_sum is x) == (y is None)  # nothing added, nothing copied
+    # a CPU tensor, or the scoped switch, takes the plain version; x is not written
+    before = x.clone()
+    for switch in (False, True):
+        with ops.plain_versions(switch):
+            s, h = residual_layer_norm(x, y, gamma, beta, out_dtype)
+        assert torch.equal(s, want_sum) and torch.equal(h, want) and torch.equal(x, before)
+
+
+def _meta(*shape, dtype=torch.float32, grad=False):
+    return torch.empty(shape, dtype=dtype, device="meta", requires_grad=grad)
+
+
+def test_residual_layer_norm_takes_the_plain_version_wherever_autograd_records():
+    """On a device with a kernel (a meta tensor stands for one here) the
+    wrapper runs the plain version under grad mode with a tensor that
+    requires a gradient, and otherwise goes for the kernel, which a meta
+    tensor does not reach."""
+    x, y = _meta(4, 16), _meta(4, 16, dtype=torch.bfloat16)
+    gamma, beta = _meta(16, grad=True), _meta(16, grad=True)
+    s, h = residual_layer_norm(x, y, gamma, beta, torch.bfloat16)
+    assert h.grad_fn is not None and h.dtype == torch.bfloat16 and s.device.type == "meta"
+    for grad_mode, leaves in ((False, (gamma, beta)), (True, (gamma.detach(), beta.detach()))):
+        with torch.set_grad_enabled(grad_mode), pytest.raises(ValueError, match="one CUDA device"):
+            residual_layer_norm(x, y, *leaves, torch.bfloat16)
+    with torch.inference_mode(), pytest.raises(ValueError, match="one CUDA device"):
+        residual_layer_norm(x, None, gamma, beta, torch.float32)
+    with ops.plain_versions(), torch.no_grad():
+        assert residual_layer_norm(x, y, gamma, beta, torch.float32)[1].dtype == torch.float32
+
+
+@pytest.mark.parametrize("case", ["wide", "strided", "bf16_stream", "fp16_branch", "fp16_out",
+                                  "gamma"])
+def test_residual_layer_norm_refuses_what_the_kernel_does_not_take(case):
+    d = 1025 if case == "wide" else 64
+    x = _meta(6, 2 * d)[:, :d] if case == "strided" else _meta(6, d)
+    if case == "bf16_stream":
+        x = x.to(torch.bfloat16)
+    y = _meta(6, d, dtype=torch.float16 if case == "fp16_branch" else torch.bfloat16)
+    gamma = _meta(d + 1 if case == "gamma" else d)
+    out = torch.float16 if case == "fp16_out" else torch.bfloat16
+    error, match = {"wide": (ValueError, "1 to 1024"), "strided": (ValueError, "contiguous"),
+                    "bf16_stream": (TypeError, "must be fp32"),
+                    "fp16_branch": (TypeError, "bf16 or fp32 of x's shape"),
+                    "fp16_out": (TypeError, "writes bf16 or fp32"),
+                    "gamma": (ValueError, "gamma and beta")}[case]
+    with torch.no_grad(), pytest.raises(error, match=match):
+        residual_layer_norm(x, y, gamma, _meta(d), out)
+
+
+def test_residual_layer_norm_constants_match_the_kernel():
+    src = (ROOT / "speech_separation_tpu_torch" / "csrc" / "residual_layer_norm.cu").read_text()
+    assert float(re.search(r"kEps = ([0-9.e+-]+)f;", src).group(1)) == layer_norm_cuda.EPS == 1e-6
+    assert int(re.search(r"kMaxDim = (\d+);", src).group(1)) == layer_norm_cuda.MAX_DIM == 1024
+    assert "residual_layer_norm_kernel" in src  # the name the benchmark's LN readers find
+
+
+def _stack_before_fusing(stack, x):
+    """The transformer stack as written before its adds were fused with its
+    norms: x + MHA(LN(x)), then x + FFN(LN(x)), each LN fp32 and cast by the
+    product that reads it, then the final LN."""
+    def norm(ln, v):
+        return F.layer_norm(v.float(), ln.gamma.shape, ln.gamma.float(), ln.beta.float(), 1e-6)
+
+    def product(conv, v):
+        return conv.pointwise(v.to(conv.kernel.dtype))
+
+    x = x.float() + positional_encoding(x.shape[1], x.shape[2], x.device)
+    for j in range(stack.layers):
+        layer = getattr(stack, f"layer_{j}")
+        r, length, d = x.shape
+        qkv = product(layer.attn_in, norm(layer.attn_norm, x))
+        q, k, v = qkv.view(r, length, 3, layer.heads, d // layer.heads).permute(2, 0, 3, 1, 4).unbind(0)
+        y = attention(q, k, v).transpose(1, 2).reshape(r, length, d)
+        x = x + product(layer.attn_out, y)
+        h = torch.relu(product(layer.ffn_in, norm(layer.ffn_norm, x)))
+        x = x + product(layer.ffn_out, h)
+    return norm(stack.norm, x)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_fused_stack_equals_the_unfused_layer_order_bit_for_bit(monkeypatch, bf16):
+    model, _, _ = _toy(seed=11)
+    net = products_in_bf16(model) if bf16 else model
+    mix = _mix((2, 640), seed=12)
+    rows = _mix((3, 8, TOY["d_model"]), seed=13)
+    with torch.no_grad():
+        fused, stack = net(mix), net.dp_0.intra(rows)
+        assert torch.equal(stack, _stack_before_fusing(net.dp_0.intra, rows))
+        monkeypatch.setattr(sepformer._TransformerStack, "forward", _stack_before_fusing)
+        assert torch.equal(fused, net(mix))
+    assert stack.dtype == fused.dtype == torch.float32
+
+
+def test_state_dict_keys_are_unchanged():
+    model, weights, _ = _toy()
+    layer = ["attn_norm.gamma", "attn_norm.beta", "attn_in.kernel", "attn_in.bias",
+             "attn_out.kernel", "attn_out.bias", "ffn_norm.gamma", "ffn_norm.beta",
+             "ffn_in.kernel", "ffn_in.bias", "ffn_out.kernel", "ffn_out.bias"]
+    stack = [f"layer_{j}.{name}" for j in range(TOY["layers"]) for name in layer]
+    want = {f"dp_0.{part}.{name}" for part in ("intra", "inter")
+            for name in (*stack, "norm.gamma", "norm.beta")}
+    keys = set(model.state_dict())
+    assert {k for k in keys if k.startswith(("dp_0.intra.", "dp_0.inter."))} == want
+    assert keys == set(weights)
 
 
 def test_positions_are_the_published_sinusoids():
