@@ -194,6 +194,29 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    ``models.sepformer.serving_fn(bf16=True)`` at the published widths on
    2 × 4 s with one fused launch a norm, 2 × 2 × 17 a call, and none of
    PyTorch's LayerNorm.
+26. TF-GridNet in the forms its serving path launches, at a 16 × 10 s
+   batch's shapes. The STFT kernel with the square-root Hann table at 256/64
+   on 16 × 80,000 samples against its plain versions and ``torch.stft`` of
+   ``sqrt(hann_window)`` (within the STFT bound). The fused residual add and
+   LayerNorm over the stream's 2,586,192 rows of D = 128 at the model's eps
+   1e-5, bf16 rows out, with an fp32 branch and with none: against the plain
+   version as in phase 25, and beyond a bf16 ulp of the plain version at
+   eps 1e-6 (the rows' scales run from 10^-3 to 3), timed beside its byte
+   bound. The attention scores (``ops/wide_attention_cuda.py``,
+   ``csrc/wide_attention.cu``; no TPU kernel) at 64 head-items of 1,253
+   frames, d = 516: the bf16 probabilities against the plain version (each
+   within 2^-8 of its size, past 1e-6), rows summing to 1 within 2^-8,
+   reruns bit-identical, then timed beside their bound, the fp32 plain
+   version and the same scores from library calls (``library_ms``:
+   ``softmax(matmul(q, kᵀ) · d^-0.5)`` in bf16, a yardstick the port never
+   calls); the whole attention with V of 4,128 (kernel and ``torch.matmul``)
+   beside bf16 matmul–softmax–matmul and SDPA's math backend. Row 2 at H =
+   256 in bf16 over the batch's intra rows (20,048 × 126) and sub-band rows
+   (2,064 × 1,250), timed in µs a step a launch. Then
+   ``models.tfgridnet.serving_fn`` (bf16) at the published widths
+   (15,152,696 parameters) on 2 × 4 s against the fp32 reference within the
+   ``tfgridnet_separate`` cell's ``est_rel_err`` limit, one scores launch a
+   block (the kernels line's ``launches``, counted from 0 for that call).
 
 Phase 15 also holds the search's NaN picks: a NaN score orders below every
 number, so a row holding one gets its first NaN's index, as ``torch.argmin``
@@ -209,7 +232,7 @@ against 4 (N D + D K + N) bytes); and the time of one PyTorch call computing
 the same function where there is one (``torch.stft``, cuDNN ``nn.LSTM``),
 used nowhere in the port.
 
-Phases run in the order 1 to 19, 21 to 25, then 20. The kernels line gives
+Phases run in the order 1 to 19, 21 to 26, then 20. The kernels line gives
 each kernel's launches on the dynamic-mixing path of phase 21
 (``launches_dynamic_mix``) and the trunk kernel's on the window streaming
 path of phase 22 (``launches_streaming``, ``launches_streaming_cli``) with its
@@ -341,6 +364,12 @@ DPRNN_ROWS = ((16 * 641, 250), (16 * 250, 641))
 # SepFormer's token rows in a 16 x 10 s batch: 16 items x 81 chunks x K = 250, d = 256
 NORM_ROWS, NORM_DIM = 16 * 81 * 250, 256
 DPRNN_BF16_DB = 20.0
+# TF-GridNet in a 16 x 10 s batch: 16 items x 4 heads of 1,253 frames, Q and K
+# rows of 4 x 129 values, V rows of 32 x 129; row 2's intra (16 x 1,253 frames
+# of 126 windows) and sub-band (16 x 129 bins of 1,250 windows) rows
+GRID_HEADS, GRID_FRAMES, GRID_QK, GRID_V = 64, 1_253, 516, 4_128
+GRID_BATCH, GRID_SAMPLES = 16, 80_000
+GRID_ROWS = ((16 * 1_253, 126), (16 * 129, 1_250))
 # NVIDIA H100 SXM: HBM bytes/s, dense bf16 tensor-core and fp32 FLOP/s
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 
@@ -667,6 +696,8 @@ def main() -> int:
     dprnn = dprnn_phases(device, gen)
     torch.cuda.empty_cache()
     norm = sepformer_phases(device, gen)
+    torch.cuda.empty_cache()
+    scores = tfgridnet_phases(device, gen)
     scoring_phases(device, kept)
     kept_dir.cleanup()
     for entry in train:  # rows 3 and 4: their keep-mode launches on the packed path
@@ -724,6 +755,7 @@ def main() -> int:
         *tasnet_train,
         codec,
         norm,
+        scores,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
@@ -2933,6 +2965,73 @@ def dprnn_phases(device, gen) -> dict:
     return out
 
 
+def bf16_ulps(got, want):
+    """The largest gap between ``got`` and ``want`` in bf16 ulps of the larger
+    of the two, at least 2^-8 (as ``tests/test_torch_cuda.py`` counts them)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    top = torch.maximum(torch.maximum(g.abs(), w.abs()), torch.full_like(g, 2.0**-8))
+    _, e = torch.frexp(top)
+    return ((g - w).abs() / torch.ldexp(torch.ones_like(g), e - 8)).max().item()
+
+
+def residual_norm_form(tag, form, x, branch, gamma, beta, dt, per, eps, other_eps=None) -> dict:
+    """One form of the fused residual add and LayerNorm over the rows of ``x``
+    at ``eps``: against its plain version (the sum and reruns bit for bit, fp32
+    rows within 1e-6 relative L2, bf16 rows within one bf16 ulp), then timed
+    beside its byte bound (``per`` compulsory bytes an element). With
+    ``other_eps``, the plain version at that eps must lie beyond the bound, so
+    the check sees the eps the kernel was given."""
+    import torch
+
+    from speech_separation_tpu_torch.ops.layer_norm_cuda import (
+        residual_layer_norm,
+        residual_layer_norm_plain,
+    )
+
+    rows, d = x.shape
+    fp32 = torch.float32
+    want_sum, want = residual_layer_norm_plain(x, branch, gamma, beta, dt, eps)
+    with torch.inference_mode():
+        runs = [residual_layer_norm(x.clone(), branch, gamma, beta, dt, eps) for _ in range(2)]
+    torch.cuda.synchronize()
+    (got_sum, got), (again_sum, again) = runs
+
+    def error(ref):
+        return rel_l2(got, ref) if dt == fp32 else bf16_ulps(got, ref)
+
+    err, lim = error(want), 1e-6 if dt == fp32 else 1.0
+    same = torch.equal(got_sum, want_sum) and torch.equal(again_sum, got_sum) and torch.equal(
+        again, got)
+    del runs, got_sum, again_sum, again, want_sum, want
+    other_err = None
+    if other_eps is not None:
+        other_err = error(residual_layer_norm_plain(x, branch, gamma, beta, dt, other_eps)[1])
+    del got
+    if not (err <= lim and same and (other_err is None or other_err > lim)):
+        raise AssertionError(f"residual_layer_norm {form} {rows} x {d} eps {eps}: error {err} "
+                             f"(bound {lim}), sum and reruns bit-identical {same}, error against "
+                             f"eps {other_eps} {other_err} (must exceed the bound)")
+    stream = x.clone()
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: residual_layer_norm(stream, branch, gamma, beta, dt, eps), iters=50,
+                     warmup=3)
+    del stream
+    torch.cuda.empty_cache()
+    entry = bound(per * rows * d, 8 * rows * d, FP32_FLOPS)
+    out = {"err": err, "ms": ms, **entry, "bound_share": 100 * entry["bound_ms"] / ms}
+    seen = "" if other_err is None else f" ({other_err:.3g} against eps {other_eps})"
+    phase(tag, f"residual_layer_norm {form} {rows} x {d} eps {eps}: "
+          + ("rel L2 " if dt == fp32 else "bf16 ulps ") + f"{err:.3g} <= {lim}{seen} against the "
+          f"plain version, x + y and reruns bit-identical; {ms:.4f} ms a call, bound "
+          f"{entry['bound_ms']:.4f} ms ({per} B an element, {entry['bound_by']}), "
+          f"{out['bound_share']:.1f}% of it")
+    if other_err is not None:
+        out["err_other_eps"] = other_err
+    return out
+
+
 def sepformer_phases(device, gen) -> dict:
     """Phase 25; returns the fused residual add and LayerNorm's entry for the
     kernels line."""
@@ -2941,10 +3040,7 @@ def sepformer_phases(device, gen) -> dict:
 
     from bench_torch.reference import sepformer as reference
     from speech_separation_tpu_torch.models.sepformer import SepFormer, serving_fn
-    from speech_separation_tpu_torch.ops.layer_norm_cuda import (
-        residual_layer_norm,
-        residual_layer_norm_plain,
-    )
+    from speech_separation_tpu_torch.ops.layer_norm_cuda import EPS, residual_layer_norm
 
     rows, d = NORM_ROWS, NORM_DIM
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -2959,36 +3055,8 @@ def sepformer_phases(device, gen) -> dict:
     forms = (("norm_bf16", None, bf16, 4 + 2), ("add_bf16", y, bf16, 4 + 2 + 4 + 2),
              ("add_fp32", y, fp32, 4 + 2 + 4 + 4))
     for form, branch, dt, per in forms:
-        want_sum, want = residual_layer_norm_plain(x, branch, gamma, beta, dt)
-        with torch.inference_mode():
-            runs = [residual_layer_norm(x.clone(), branch, gamma, beta, dt) for _ in range(2)]
-        torch.cuda.synchronize()
-        (got_sum, got), (again_sum, again) = runs
-        g, w = got.float(), want.float()
-        if dt == fp32:
-            err, lim = rel_l2(got, want), 1e-6
-        else:  # bf16 ulps of the larger value, at least 2^-8 (tests/test_torch_cuda.py)
-            top = torch.maximum(torch.maximum(g.abs(), w.abs()), torch.full_like(g, 2.0**-8))
-            _, e = torch.frexp(top)
-            err, lim = ((g - w).abs() / torch.ldexp(torch.ones_like(g), e - 8)).max().item(), 1.0
-        same = torch.equal(got_sum, want_sum) and torch.equal(again_sum, got_sum) and torch.equal(
-            again, got)
-        if not (err <= lim and same):
-            raise AssertionError(f"residual_layer_norm {form} {rows} x {d}: error {err} (bound "
-                                 f"{lim}), sum and reruns bit-identical {same}")
-        del runs, got_sum, got, again_sum, again, g, w, want_sum, want
-        stream = x.clone()
-        with torch.inference_mode():
-            ms = cuda_ms(lambda: residual_layer_norm(stream, branch, gamma, beta, dt), iters=50,
-                         warmup=3)
-        del stream
-        entry = bound(per * rows * d, 8 * rows * d, FP32_FLOPS)
-        out[form] = {"err": err, "ms": ms, **entry, "bound_share": 100 * entry["bound_ms"] / ms}
-        phase("sepformer-norm", f"residual_layer_norm {form} {rows} x {d}: "
-              + ("rel L2 " if dt == fp32 else "bf16 ulps ") + f"{err:.3g} <= {lim} against the "
-              f"plain version, x + y and reruns bit-identical; {ms:.4f} ms a call, bound "
-              f"{entry['bound_ms']:.4f} ms ({per} B an element, {entry['bound_by']}), "
-              f"{out[form]['bound_share']:.1f}% of it")
+        out[form] = residual_norm_form("sepformer-norm", form, x, branch, gamma, beta, dt, per,
+                                       EPS)
 
     def library():  # what the port ran before: the add, PyTorch's LayerNorm, the cast
         s = x + y
@@ -3029,6 +3097,185 @@ def sepformer_phases(device, gen) -> dict:
     phase("sepformer-norm", f"serving_fn bf16 (published widths) 2 x 4 s: {launched} fused "
           f"launches a call ({cfg['blocks']} blocks x 2 halves x (1 + 2 x {cfg['layers']})), no "
           f"F.layer_norm; worst rel L2 {err:.3e} against the fp32 reference (<= "
+          f"{limit['est_rel_err']})")
+    del model, weights, mix, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def tfgridnet_phases(device, gen) -> dict:
+    """Phase 26; returns the attention-scores kernel's entry for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from bench_torch.reference import tfgridnet as reference
+    from speech_separation_tpu_torch.models.tfgridnet import TFGridNet, serving_fn
+    from speech_separation_tpu_torch.ops.layer_norm_cuda import EPS
+    from speech_separation_tpu_torch.ops.lstm_cuda import (
+        _device_limits,
+        forward_plan,
+        lstm_recurrence,
+        lstm_recurrence_plain,
+    )
+    from speech_separation_tpu_torch.ops.stft import stft
+    from speech_separation_tpu_torch.ops.stft_cuda import stft_cuda, stft_fft_plain
+    from speech_separation_tpu_torch.ops.wide_attention_cuda import (
+        wide_attention,
+        wide_attention_scores,
+        wide_attention_scores_plain,
+    )
+
+    root = pathlib.Path(__file__).resolve().parent
+    cfg = json.loads((root / "bench_torch" / "configs" / "tfgridnet.json").read_text())
+    limit = json.loads((root / "bench_torch" / "limits" / "tfgridnet_separate.json").read_text())
+    bf16 = torch.bfloat16
+
+    # the encoder's STFT: the kernel with the square-root Hann table at the
+    # configuration's size and hop, against the plain versions and torch.stft
+    # of sqrt(torch.hann_window) over the same fade pads (a window oracle of
+    # its own: the others read ops/windows.py as the kernel does)
+    size, hop = cfg["n_fft"], cfg["hop"]
+    sig = torch.randn(GRID_BATCH, GRID_SAMPLES, generator=gen, device=device)
+    spec = stft_cuda(sig, size, hop, window="sqrt_hann")
+    hann = torch.hann_window(size, periodic=True, dtype=torch.float64, device=device).sqrt().float()
+    wants = {"matmul plain": stft(sig, size, hop, window="sqrt_hann"),
+             "torch.fft oracle": stft(sig, size, hop, method="fft", window="sqrt_hann"),
+             "stft_fft_plain": stft_fft_plain(sig, size, hop, window="sqrt_hann"),
+             "torch.stft of sqrt(hann)": torch.stft(
+                 F.pad(sig, (size - hop, size - hop)), size, hop, window=hann, center=False,
+                 return_complex=True).transpose(1, 2)}
+    errs = {what: (spec - want).abs().max().item() for what, want in wants.items()}
+    torch.cuda.synchronize()
+    if not (spec.shape == (GRID_BATCH, GRID_FRAMES, size // 2 + 1)
+            and max(errs.values()) <= STFT_TOL):
+        raise AssertionError(f"stft_cuda sqrt_hann {size}/{hop} {tuple(sig.shape)}: shape "
+                             f"{tuple(spec.shape)}, max abs err {errs} (<= {STFT_TOL})")
+    out = {"name": "wide_attention_scores", "route": "cuda",
+           "source": "speech_separation_tpu_torch/csrc/wide_attention.cu", "replaces": None,
+           "stft_sqrt_hann_err": max(errs.values())}
+    phase("tfgridnet-stft", f"stft_analysis sqrt_hann {tuple(sig.shape)} fp32 size {size} hop "
+          f"{hop}: {spec.shape[1]} frames, max abs err "
+          + ", ".join(f"{v:.3e} against the {k}" for k, v in errs.items()) + f" <= {STFT_TOL}")
+    del sig, spec, wants
+
+    # the fused residual add and channel LayerNorm in the form the blocks launch
+    # it: an fp32 stream [B, T, F, D] of a 16 x 10 s batch, d = D, the model's
+    # eps, bf16 rows for the next BiLSTM; the branch fp32 (a half's output) or
+    # none (the first block's first norm). Rows' scales run from 10^-3 to 3,
+    # so the first rows' variance is near eps and a wrong eps shows
+    rows, d = GRID_BATCH * GRID_FRAMES * (size // 2 + 1), cfg["d_model"]
+    scale = torch.logspace(-3, 0.5, rows, device=device)[:, None]
+    x = scale * (3 * torch.randn(rows, d, generator=gen, device=device) + 0.5)
+    y = scale * torch.randn(rows, d, generator=gen, device=device)
+    gamma = 1 + 0.2 * torch.randn(d, generator=gen, device=device)
+    beta = torch.randn(d, generator=gen, device=device)
+    out["residual_layer_norm"] = {"rows": rows, "dim": d, "eps": cfg["eps"]}
+    for form, branch, per in (("norm_bf16", None, 4 + 2), ("add_fp32_branch_bf16", y, 4 + 4 + 4 + 2)):
+        out["residual_layer_norm"][form] = residual_norm_form(
+            "tfgridnet-norm", form, x, branch, gamma, beta, bf16, per, cfg["eps"], other_eps=EPS)
+    del x, y, scale
+    torch.cuda.empty_cache()
+
+    items, length, depth, dv = GRID_HEADS, GRID_FRAMES, GRID_QK, GRID_V
+    q, k = [(3 * torch.randn(items, length, depth, generator=gen, device=device)).to(bf16)
+            for _ in range(2)]
+    with torch.inference_mode():
+        got, again = wide_attention_scores(q, k), wide_attention_scores(q, k)
+    torch.cuda.synchronize()
+    want = wide_attention_scores_plain(q, k)
+    g = got.float()
+    excess = ((g - want).abs() - 2.0**-8 * want - 1e-6).max().item()
+    row_err = (g.sum(-1) - 1).abs().max().item()
+    same = torch.equal(got, again)
+    del g, again
+    if not (excess <= 0 and row_err <= 2.0**-8 and same):
+        raise AssertionError(f"wide_attention_scores {items} x {length} x {depth}: beyond 2^-8 of "
+                             f"plain by {excess}, rows off 1 by {row_err}, reruns equal {same}")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: wide_attention_scores(q, k), iters=20, warmup=2)
+        plain_ms = cuda_ms(lambda: wide_attention_scores_plain(q, k), iters=5, warmup=1)
+    del want
+
+    def library():  # the same scores from library calls: a bf16 cuBLAS product, then softmax
+        return torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * depth**-0.5, -1)
+
+    with torch.inference_mode():
+        lib_ms = cuda_ms(library, iters=20, warmup=2)
+    entry = bound(2 * (2 * items * length * depth + items * length * length),
+                  2 * items * length * length * depth, BF16_FLOPS)
+    out.update({"items": items, "length": length, "depth": depth, "rel_excess": excess,
+                "row_sum_err": row_err, "ms": ms, "plain_ms": plain_ms, **entry,
+                "bound_share": 100 * entry["bound_ms"] / ms, "library_ms": lib_ms})
+    phase("tfgridnet-attention", f"wide_attention_scores {items} x {length} x {depth} bf16: within "
+          f"2^-8 of the plain version (excess {excess:.3g}), rows sum to 1 within {row_err:.3g}, "
+          f"reruns bit-identical; {ms:.4f} ms a call, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}), {out['bound_share']:.1f}% of it; plain (fp32) {plain_ms:.4f} "
+          f"ms; softmax(matmul(q, k^T) * d^-0.5) in bf16 (a yardstick) {lib_ms:.4f} ms, the "
+          f"kernel {lib_ms / ms:.2f}x its speed")
+    v = torch.randn(items, length, dv, generator=gen, device=device).to(bf16)
+    q4, k4, v4 = (t[:, None] for t in (q, k, v))  # [N, 1, L, d]: SDPA's heads axis
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with torch.inference_mode():
+        whole_ms = cuda_ms(lambda: wide_attention(q, k, v), iters=10, warmup=2)
+        with sdpa_kernel(SDPBackend.MATH):
+            whole_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), iters=10,
+                                   warmup=2)
+        whole_mm_ms = cuda_ms(lambda: torch.matmul(library(), v), iters=10, warmup=2)
+    out.update({"attention_ms": whole_ms, "attention_library_ms": whole_lib_ms,
+                "attention_matmul_ms": whole_mm_ms})
+    phase("tfgridnet-attention", f"whole attention with V of {dv}: the port's (scores kernel + "
+          f"torch.matmul) {whole_ms:.4f} ms; bf16 matmul, softmax, matmul {whole_mm_ms:.4f} ms; "
+          f"SDPA's math backend {whole_lib_ms:.4f} ms (yardsticks the port never calls)")
+    del q, k, v, q4, k4, v4, got
+    torch.cuda.empty_cache()
+
+    hidden = 256
+    steps_us = {}
+    for tag, (rows, steps) in (("intra", GRID_ROWS[0]), ("inter", GRID_ROWS[1])):
+        xw = 0.5 * torch.randn(2, rows, steps, 4 * hidden, generator=gen, device=device, dtype=bf16)
+        u = (torch.randn(2, hidden, 4 * hidden, generator=gen, device=device) / hidden**0.5).to(bf16)
+        plan = forward_plan(rows, hidden, True, 2, **_device_limits(device))
+        before = lstm_recurrence.launches
+        got = lstm_recurrence(xw, u, reverse=(False, True))
+        torch.cuda.synchronize()
+        launched = lstm_recurrence.launches - before
+        err = (got.float() - lstm_recurrence_plain(xw, u, reverse=(False, True)).float()).abs().max().item()
+        if launched != len(plan.slices) or err > 3e-2:
+            raise AssertionError(f"lstm_recurrence bf16 H=256 {rows} x {steps}: {launched} launches "
+                                 f"for {len(plan.slices)}, max abs err {err}")
+        t_ms = cuda_ms(lambda: lstm_recurrence(xw, u, reverse=(False, True)), iters=3)
+        steps_us[tag] = 1e3 * t_ms / (steps * launched)
+        lstm_bound = bound(2 * (2 * rows * steps * 4 * hidden + 2 * hidden * 4 * hidden
+                                + rows * steps * 2 * hidden),
+                           2 * 2 * rows * steps * hidden * 4 * hidden, BF16_FLOPS)
+        out[f"lstm_{tag}"] = {"rows": rows, "steps": steps, "launches": launched, "err": err,
+                              "ms": t_ms, "us_per_step_launch": steps_us[tag], **lstm_bound}
+        phase("tfgridnet-lstm", f"lstm_recurrence bf16 H=256 D=2 {rows} x {steps}: max abs err "
+              f"{err:.3g} against the plain loop, {launched} launches; {t_ms:.2f} ms, "
+              f"{steps_us[tag]:.2f} us a step a launch, bound {lstm_bound['bound_ms']:.3f} ms "
+              f"({lstm_bound['bound_by']})")
+        del xw, u, got
+        torch.cuda.empty_cache()
+
+    weights = reference.make_weights(cfg, 3, device)
+    with torch.device("meta"):
+        model = TFGridNet()
+    model = model.to_empty(device=device)
+    model.load_state_dict(weights)
+    mix = 0.1 * torch.randn(2, 32_000, generator=gen, device=device)
+    wide_attention_scores.launches = 0  # the main path's launches alone, not the checks' above
+    got = serving_fn(model, bf16=True)(mix)
+    torch.cuda.synchronize()
+    launched = wide_attention_scores.launches
+    want = reference.separate(weights, cfg, mix)
+    err = max(rel_l2(got[r], want[r]) for r in range(got.shape[0]))
+    if launched != cfg["blocks"] or err > limit["est_rel_err"]:
+        raise AssertionError(f"TF-GridNet serving_fn bf16: {launched} scores launches for "
+                             f"{cfg['blocks']}, worst rel L2 {err} (limit {limit['est_rel_err']})")
+    out.update({"serve_rel_err": err, "launches": launched})
+    phase("tfgridnet-serve", f"serving_fn bf16 (published widths) 2 x 4 s: {launched} scores "
+          f"launches a call; worst rel L2 {err:.3e} against the fp32 reference (<= "
           f"{limit['est_rel_err']})")
     del model, weights, mix, got, want
     torch.cuda.empty_cache()

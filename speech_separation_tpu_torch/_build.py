@@ -37,6 +37,7 @@ BUILD_DIR = _PACKAGE / ".kernel_build"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # signal, table, out, batch, samples, frames, size, shift, pad, stream
     "sst_stft_analysis": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -72,8 +73,10 @@ _SIGNATURES = {
     # flat, codebook, out, rows, ld, groups, dim, codes, ctas, resident, smem,
     # stream
     "sst_nearest_code": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, stream
-    "sst_residual_layer_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, eps, stream
+    "sst_residual_layer_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, p, items, length, depth, scale, stream
+    "sst_wide_attention_scores": (_P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

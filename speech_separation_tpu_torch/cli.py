@@ -21,9 +21,10 @@
 raw waveforms, writing ``train_config.json``, ``metrics.jsonl`` and the best
 checkpoints to the checkpoint directory. ``--workload upit``: the uPIT BLSTM
 (``blstm``) on the PIT loss of its masks, or Conv-TasNet (``tasnet``),
-DPRNN-TasNet (``dprnn``, its BiLSTMs in the training kernels) or SepFormer
+DPRNN-TasNet (``dprnn``, its BiLSTMs in the training kernels), SepFormer
 (``sepformer``, its attention in SDPA's flash kernel: on a GPU it trains
-with ``bf16_compute``) wave to wave on the negative SI-SDR, with
+with ``bf16_compute``) or TF-GridNet (``tfgridnet``, on the CPU only: its
+attention kernel has no backward) wave to wave on the negative SI-SDR, with
 ``tasnet_pallas_trunk`` running the TCN trunk's forward and backward in the
 training CUDA kernels (bf16). With ``pack`` the BLSTM trains on
 sequence-packed rows (``data/packing.py``), its recurrences in the training
@@ -32,15 +33,18 @@ epoch (re-paired sources, fresh gains and crops; ``data/datasets.py``).
 ``--workload vqvae``: a VQ-VAE codec (``gumbel``, ``v2``, ``t2``, ``t3``,
 ``t3tok``) on the summed squared error plus its auxiliary losses, NAdam for
 the t-series and Adam otherwise. ``separate`` loads the best checkpoint: a
-``blstm`` checkpoint goes to ``separate_directory``; a ``tasnet``, ``dprnn``
-or ``sepformer`` checkpoint to the time-domain path, whole utterances or
+``blstm`` checkpoint goes to ``separate_directory``; a ``tasnet``, ``dprnn``,
+``sepformer`` or ``tfgridnet`` checkpoint to the time-domain path, whole utterances or
 overlapped chunks, with ``--kernel pallas`` running Conv-TasNet's TCN trunk in the ``tcn_trunk``
 CUDA kernel (bf16; the JAX flag's name) and ``--kernel xla`` the module's own
 forward; DPRNN-TasNet always runs its module (``models.dprnn.serving_fn``,
 its recurrences in the ``lstm_recurrence`` kernel; ``--bf16`` for bf16) and
 SepFormer its (``models.sepformer.serving_fn``; on a GPU only with
-``--bf16``, its products in bf16 and its attention in the flash kernel);
-both refuse ``--kernel pallas`` and streaming.
+``--bf16``, its products in bf16 and its attention in the flash kernel) and
+TF-GridNet its (``models.tfgridnet.serving_fn``; on a GPU only with
+``--bf16``, its BiLSTMs in the ``lstm_recurrence`` kernel and its attention
+in the ``wide_attention`` kernel); all three refuse ``--kernel pallas`` and
+streaming.
 ``--streaming-hop-seconds`` separates each utterance hop by hop instead (it
 wins over ``--chunk-seconds`` and turns ``--transfer-int16`` off): a causal
 checkpoint through the exact stateful engine, a gLN one through sliding
@@ -69,7 +73,8 @@ import torch
 
 __all__ = ["main"]
 
-TIME_DOMAIN = ("tasnet", "dprnn", "sepformer")  # wave-in, wave-out separators
+TIME_DOMAIN = ("tasnet", "dprnn", "sepformer", "tfgridnet")  # wave-in, wave-out separators
+MODULE_SERVED = ("dprnn", "sepformer", "tfgridnet")  # served through their serving_fn alone
 
 
 def _device(name: str) -> torch.device:
@@ -86,8 +91,23 @@ def _build_model(cfg, device: torch.device):
     from .models.dprnn import DPRNN
     from .models.sepformer import SepFormer
     from .models.tasnet import ConvTasNet
+    from .models.tfgridnet import TFGridNet
     from .models.upit import UPitBlstm
 
+    if cfg.variant == "tfgridnet":
+        model = TFGridNet(
+            num_speakers=cfg.num_speakers,
+            n_fft=cfg.tfgridnet_n_fft,
+            hop=cfg.tfgridnet_hop,
+            d_model=cfg.tfgridnet_d_model,
+            blocks=cfg.tfgridnet_blocks,
+            kernel=cfg.tfgridnet_kernel,
+            hidden=cfg.tfgridnet_hidden,
+            heads=cfg.tfgridnet_heads,
+            qk_dim=cfg.tfgridnet_qk_dim,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        )
+        return model.to(device)
     if cfg.variant == "sepformer":
         model = SepFormer(
             num_speakers=cfg.num_speakers,
@@ -281,6 +301,11 @@ def cmd_train(args) -> None:
             "error: a sepformer model's attention runs in SDPA's flash kernel, which takes bf16: "
             "set bf16_compute=true to train it on the GPU (or pass --device cpu for fp32)"
         )
+    if cfg.variant == "tfgridnet" and device.type == "cuda":
+        raise SystemExit(
+            "error: a tfgridnet model's attention runs in the wide_attention scores kernel, "
+            "which has no backward yet: train it with --device cpu (the plain path)"
+        )
     model = _build_model(cfg, device)
     root = pathlib.Path(cfg.data_root)
     compute_dtype = torch.bfloat16 if cfg.bf16_compute else None
@@ -446,13 +471,13 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
     from .ops.quant import dequant_i16, dequantize_estimates_i16, quantize_estimates_i16
 
     use_kernel = args.kernel == "pallas"
-    dual_path = cfg.variant in ("dprnn", "sepformer")
-    if dual_path and use_kernel:
+    own_serving = cfg.variant in MODULE_SERVED
+    if own_serving and use_kernel:
         raise SystemExit(
             f"error: --kernel pallas runs Conv-TasNet's TCN trunk kernel; a {cfg.variant} "
             "checkpoint runs its module (use --kernel xla, the default, and --bf16 for bf16)"
         )
-    if dual_path and args.streaming_hop_seconds:
+    if own_serving and args.streaming_hop_seconds:
         raise SystemExit(
             f"error: --streaming-hop-seconds streams Conv-TasNet checkpoints; a {cfg.variant} "
             "checkpoint is separated whole or in overlapped chunks (--chunk-seconds)"
@@ -462,6 +487,11 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
             "error: a sepformer checkpoint's attention runs in SDPA's flash kernel, which takes "
             "bf16: pass --bf16 (or --device cpu for fp32)"
         )
+    if cfg.variant == "tfgridnet" and device.type == "cuda" and not args.bf16:
+        raise SystemExit(
+            "error: a tfgridnet checkpoint's attention runs in the wide_attention kernel, which "
+            "takes bf16: pass --bf16 (or --device cpu for fp32)"
+        )
     if use_kernel and cfg.tasnet_causal:
         raise SystemExit(
             "error: --kernel pallas runs the fused TCN trunk, which implements the gLN "
@@ -469,10 +499,10 @@ def _separate_time_domain(cfg, model, args, device: torch.device) -> None:
             "Use --kernel xla."
         )
     model.eval()
-    if dual_path:
-        from .models import dprnn, sepformer
+    if own_serving:
+        from .models import dprnn, sepformer, tfgridnet
 
-        serving = {"dprnn": dprnn, "sepformer": sepformer}[cfg.variant]
+        serving = {"dprnn": dprnn, "sepformer": sepformer, "tfgridnet": tfgridnet}[cfg.variant]
         base = serving.serving_fn(model, bf16=args.bf16)
     elif use_kernel:
         # the trunk kernel pads nothing: pad to the encoder stride, trim after

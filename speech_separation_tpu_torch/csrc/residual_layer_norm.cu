@@ -3,7 +3,9 @@
 // Replaces no TPU kernel: the JAX package has no SepFormer. It serves the
 // pre-LN transformer layers of models/sepformer.py, where every residual add
 // of the fp32 stream is followed by the LayerNorm of the next product (the
-// next in-projection, FFN or, last, the stack's final norm). Written as
+// next in-projection, FFN or, last, the stack's final norm), and
+// models/tfgridnet.py, whose channels-last stream adds each half's branch and
+// normalises the next half's input over its 128 channels (eps 1e-5). Written as
 // PyTorch operations those are three passes over the stream: x + y (read
 // fp32 x and bf16 y, write fp32), LayerNorm (read and write fp32) and the
 // cast to the product's bf16 (read fp32, write bf16), 24 bytes an element.
@@ -45,7 +47,6 @@ namespace {
 constexpr int kWarps = 8;  // rows a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxDim = 1024;  // 32 values a lane
-constexpr float kEps = 1e-6f;
 
 template <int V>
 __device__ __forceinline__ void load_f32(const float* p, float (&v)[V]) {
@@ -115,7 +116,8 @@ template <int V, int C>
 __global__ void __launch_bounds__(kThreads)
 residual_layer_norm_kernel(float* __restrict__ x, const void* __restrict__ y,
                            const float* __restrict__ gamma, const float* __restrict__ beta,
-                           void* __restrict__ out, int rows, int dim, int y_bf16, int out_bf16) {
+                           void* __restrict__ out, int rows, int dim, int y_bf16, int out_bf16,
+                           float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;  // the whole warp: one row a warp
@@ -156,7 +158,7 @@ residual_layer_norm_kernel(float* __restrict__ x, const void* __restrict__ y,
       }
     }
   }
-  const float rstd = 1.f / sqrtf(warp_sum(sq) / static_cast<float>(dim) + kEps);
+  const float rstd = 1.f / sqrtf(warp_sum(sq) / static_cast<float>(dim) + eps);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int k = lane + 32 * c;
@@ -178,30 +180,30 @@ residual_layer_norm_kernel(float* __restrict__ x, const void* __restrict__ y,
 
 template <int V, int C>
 cudaError_t launch(float* x, const void* y, const float* gamma, const float* beta, void* out,
-                   int rows, int dim, int y_bf16, int out_bf16, cudaStream_t stream) {
+                   int rows, int dim, int y_bf16, int out_bf16, float eps, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
   residual_layer_norm_kernel<V, C><<<blocks, kThreads, 0, stream>>>(x, y, gamma, beta, out, rows,
-                                                                     dim, y_bf16, out_bf16);
+                                                                     dim, y_bf16, out_bf16, eps);
   return cudaGetLastError();
 }
 
 // The fewest chunks a lane, as a power of two, that cover dim.
 template <int V>
 cudaError_t dispatch_chunks(float* x, const void* y, const float* gamma, const float* beta,
-                            void* out, int rows, int dim, int y_bf16, int out_bf16,
+                            void* out, int rows, int dim, int y_bf16, int out_bf16, float eps,
                             cudaStream_t stream) {
   const int per_lane = (dim / V + 31) / 32;
-  if (per_lane <= 1) return launch<V, 1>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, stream);
-  if (per_lane <= 2) return launch<V, 2>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, stream);
-  if (per_lane <= 4) return launch<V, 4>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, stream);
+  if (per_lane <= 1) return launch<V, 1>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, eps, stream);
+  if (per_lane <= 2) return launch<V, 2>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, eps, stream);
+  if (per_lane <= 4) return launch<V, 4>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, eps, stream);
   if constexpr (V <= 2) {
-    if (per_lane <= 8) return launch<V, 8>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, stream);
-    if (per_lane <= 16) return launch<V, 16>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, stream);
+    if (per_lane <= 8) return launch<V, 8>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, eps, stream);
+    if (per_lane <= 16) return launch<V, 16>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, eps, stream);
     if constexpr (V == 1) {
-      return launch<V, 32>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, stream);
+      return launch<V, 32>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, eps, stream);
     }
   } else {
-    return launch<V, 8>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, stream);
+    return launch<V, 8>(x, y, gamma, beta, out, rows, dim, y_bf16, out_bf16, eps, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -214,13 +216,14 @@ bool aligned(const void* p, int bytes) {
 
 // x [rows, dim] fp32, read, and overwritten with x + y where y is given; y
 // [rows, dim] bf16 (y_bf16 1) or fp32, or null; gamma, beta [dim] fp32; out
-// [rows, dim] bf16 (out_bf16 1) or fp32, LN(x + y) with eps 1e-6. Every
+// [rows, dim] bf16 (out_bf16 1) or fp32, LN(x + y) with eps added to the
+// variance (SepFormer's 1e-6, TF-GridNet's 1e-5). Every
 // array contiguous, 1 <= dim <= 1024. Chunks of 4 elements where dim and
 // every pointer allow 16-byte fp32 accesses, else 2, else 1. Returns
 // cudaGetLastError() after the launch.
 extern "C" int sst_residual_layer_norm(void* x, const void* y, const void* gamma, const void* beta,
                                        void* out, int rows, int dim, int y_bf16, int out_bf16,
-                                       void* stream) {
+                                       float eps, void* stream) {
   if (rows < 0 || dim < 1 || dim > kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaGetLastError());
   float* xf = static_cast<float*>(x);
@@ -235,11 +238,11 @@ extern "C" int sst_residual_layer_norm(void* x, const void* y, const void* gamma
   };
   cudaError_t err;
   if (fits(4)) {
-    err = dispatch_chunks<4>(xf, y, g, b, out, rows, dim, y_bf16, out_bf16, s);
+    err = dispatch_chunks<4>(xf, y, g, b, out, rows, dim, y_bf16, out_bf16, eps, s);
   } else if (fits(2)) {
-    err = dispatch_chunks<2>(xf, y, g, b, out, rows, dim, y_bf16, out_bf16, s);
+    err = dispatch_chunks<2>(xf, y, g, b, out, rows, dim, y_bf16, out_bf16, eps, s);
   } else {
-    err = dispatch_chunks<1>(xf, y, g, b, out, rows, dim, y_bf16, out_bf16, s);
+    err = dispatch_chunks<1>(xf, y, g, b, out, rows, dim, y_bf16, out_bf16, eps, s);
   }
   return static_cast<int>(err);
 }

@@ -1,11 +1,12 @@
-"""Models as ``nn.Module``s: the uPIT BLSTM, Conv-TasNet, DPRNN-TasNet and
-SepFormer separators, with Conv-TasNet's folded serving and kernel training
+"""Models as ``nn.Module``s: the uPIT BLSTM, Conv-TasNet, DPRNN-TasNet,
+SepFormer and TF-GridNet separators, with Conv-TasNet's folded serving and kernel training
 paths, and the VQ-VAE codec family with its quantizers."""
 
 from .dprnn import DPRNN
 from .sepformer import SepFormer
 from .tasnet import ConvTasNet
 from .tasnet_serving import cuda_apply, fused_apply, train_apply
+from .tfgridnet import TFGridNet
 from .upit import UPitBlstm
 from .vq import (
     GumbelSoftmax,
@@ -22,6 +23,7 @@ __all__ = [
     "GumbelSoftmax",
     "ResidualVectorQuantizer",
     "SepFormer",
+    "TFGridNet",
     "UPitBlstm",
     "VectorQuantizer",
     "VqVaeCodebook",

@@ -3,11 +3,13 @@
 :func:`residual_layer_norm` takes the fp32 stream ``x [..., d]``, an optional
 branch ``y`` of the same shape (bf16 or fp32) and the norm's ``gamma`` and
 ``beta``, and returns ``(x + y, LN(x + y))``, the normed rows in
-``out_dtype`` (bf16 or fp32), eps :data:`EPS`. With no ``y`` it returns ``x``
-and ``LN(x)``. The port's SepFormer chains its pre-LN layers through it
-(``models/sepformer.py``): each residual add with the LayerNorm of the next
-product, the rows written in that product's dtype. The kernel has no JAX
-counterpart.
+``out_dtype`` (bf16 or fp32), eps ``eps`` (default :data:`EPS`). With no
+``y`` it returns ``x`` and ``LN(x)``. The port's SepFormer chains its pre-LN
+layers through it (``models/sepformer.py``): each residual add with the
+LayerNorm of the next product, the rows written in that product's dtype.
+TF-GridNet (``models/tfgridnet.py``) adds each half's branch to its
+channels-last stream and normalises the next half's input over the channels
+with it, at eps 1e-5. The kernel has no JAX counterpart.
 
 The kernel runs on a CUDA tensor when autograd does not record, and writes
 ``x + y`` in place over ``x``: a caller hands over ``x`` and reads the sum
@@ -29,17 +31,17 @@ from .dispatch import use_plain
 
 __all__ = ["EPS", "MAX_DIM", "residual_layer_norm", "residual_layer_norm_plain"]
 
-EPS = 1e-6  # the kernel's kEps
+EPS = 1e-6  # SepFormer's; the kernel takes any eps as an argument
 MAX_DIM = 1024  # the kernel's kMaxDim: a row of at most 32 values a lane in registers
 _DTYPES = (torch.bfloat16, torch.float32)  # of the branch y and of the normed rows
 
 
 def residual_layer_norm_plain(x: torch.Tensor, y: torch.Tensor | None, gamma: torch.Tensor,
-                              beta: torch.Tensor, out_dtype: torch.dtype):
+                              beta: torch.Tensor, out_dtype: torch.dtype, eps: float = EPS):
     """``(x + y.float(), F.layer_norm(x + y.float()) in out_dtype)``; ``y``
     None adds nothing and returns ``x`` itself."""
     s = x if y is None else x + y.float()
-    h = F.layer_norm(s, gamma.shape, gamma.float(), beta.float(), EPS)
+    h = F.layer_norm(s, gamma.shape, gamma.float(), beta.float(), eps)
     return s, h.to(out_dtype)
 
 
@@ -48,11 +50,11 @@ def _records(*tensors) -> bool:
 
 
 def residual_layer_norm(x: torch.Tensor, y: torch.Tensor | None, gamma: torch.Tensor,
-                        beta: torch.Tensor, out_dtype: torch.dtype):
+                        beta: torch.Tensor, out_dtype: torch.dtype, eps: float = EPS):
     """``(x + y, LN(x + y))`` over the last axis of ``x``, the second in
     ``out_dtype``; on the kernel's path the first is ``x``, overwritten."""
     if use_plain(x) or _records(x, y, gamma, beta):
-        return residual_layer_norm_plain(x, y, gamma, beta, out_dtype)
+        return residual_layer_norm_plain(x, y, gamma, beta, out_dtype, eps)
     d = x.shape[-1]
     if x.dtype != torch.float32:
         raise TypeError(f"residual_layer_norm: the stream x must be fp32, got {x.dtype}")
@@ -83,7 +85,7 @@ def residual_layer_norm(x: torch.Tensor, y: torch.Tensor | None, gamma: torch.Te
                 x.data_ptr(), None if y is None else y.data_ptr(), gamma.data_ptr(),
                 beta.data_ptr(), out.data_ptr(), rows, d,
                 int(y is not None and y.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream,
+                eps, torch.cuda.current_stream().cuda_stream,
             )
         _build.check(code, "residual_layer_norm")
         residual_layer_norm.launches += 1

@@ -8,6 +8,11 @@ Semantics match the JAX package at fp32:
 - synthesis: per-frame inverse DFT, multiply by the net biorthogonal synthesis
   window (see ``windows.py``), overlap-add, fade compensation crop.
 
+``window`` picks the analysis window (``windows.analysis_window``): the
+default ``"blackman"`` is the JAX package's, ``"sqrt_hann"`` the port's own
+(TF-GridNet); the synthesis side is always the dual of the window that
+analysed.
+
 Two compute paths:
 
 ``method="matmul"``  (default) DFT by ``torch.matmul`` against a precomputed
@@ -51,24 +56,24 @@ def stft_frame_count(samples: int, size: int, shift: int, fading: bool = True) -
     return num_frames(samples, size, shift)
 
 
-def _analysis_basis_np(size: int) -> np.ndarray:
+def _analysis_basis_np(size: int, window: str = "blackman") -> np.ndarray:
     """Windowed forward-DFT basis ``[size, 2 * bins]`` (cos block, -sin block)."""
     bins = size // 2 + 1
-    win = analysis_window(size)
+    win = analysis_window(size, window=window)
     n = np.arange(size, dtype=np.float64)[:, None]
     f = np.arange(bins, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * n * f / size
     return np.concatenate([win[:, None] * np.cos(ang), win[:, None] * -np.sin(ang)], axis=1)
 
 
-def _synthesis_basis_np(size: int, shift: int) -> np.ndarray:
+def _synthesis_basis_np(size: int, shift: int, window: str = "blackman") -> np.ndarray:
     """Inverse-DFT basis ``[2 * bins, size]`` with the synthesis window folded in.
 
     Rows are real parts then imaginary parts. DC and Nyquist imaginary rows are
     zero, matching a real-output irFFT.
     """
     bins = size // 2 + 1
-    ws = biorthogonal_synthesis_window(size, shift)
+    ws = biorthogonal_synthesis_window(size, shift, window=window)
     n = np.arange(size, dtype=np.float64)[None, :]
     f = np.arange(bins, dtype=np.float64)[:, None]
     ang = 2.0 * np.pi * n * f / size
@@ -82,17 +87,19 @@ def _synthesis_basis_np(size: int, shift: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def analysis_basis(size: int, device=None) -> torch.Tensor:
-    """fp32 basis, built once per (size, device) from the float64 one; read-only."""
+def analysis_basis(size: int, device=None, window: str = "blackman") -> torch.Tensor:
+    """fp32 basis, built once per (size, device, window) from the float64 one; read-only."""
     with torch.inference_mode(False):
-        return torch.as_tensor(_analysis_basis_np(size), dtype=torch.float32, device=device)
+        return torch.as_tensor(_analysis_basis_np(size, window), dtype=torch.float32, device=device)
 
 
 @functools.lru_cache(maxsize=32)
-def synthesis_basis(size: int, shift: int, device=None) -> torch.Tensor:
-    """fp32 basis, built once per (size, shift, device); read-only."""
+def synthesis_basis(size: int, shift: int, device=None, window: str = "blackman") -> torch.Tensor:
+    """fp32 basis, built once per (size, shift, device, window); read-only."""
     with torch.inference_mode(False):
-        return torch.as_tensor(_synthesis_basis_np(size, shift), dtype=torch.float32, device=device)
+        return torch.as_tensor(
+            _synthesis_basis_np(size, shift, window), dtype=torch.float32, device=device
+        )
 
 
 def pad_for_stft(signal: torch.Tensor, size: int, shift: int, fading: bool) -> torch.Tensor:
@@ -113,14 +120,17 @@ def stft(
     *,
     fading: bool = True,
     method: Method = "matmul",
+    window: str = "blackman",
 ) -> torch.Tensor:
     """Batched STFT of ``signal[..., t]`` → complex ``[..., frames, size//2+1]``."""
     signal = pad_for_stft(signal.to(torch.float32), size, shift, fading)
     frames = frame_signal(signal, size, shift)
     if method == "fft":
-        win = torch.as_tensor(analysis_window(size), dtype=torch.float32, device=signal.device)
+        win = torch.as_tensor(
+            analysis_window(size, window=window), dtype=torch.float32, device=signal.device
+        )
         return torch.fft.rfft(frames * win, dim=-1)
-    basis = analysis_basis(size, signal.device)
+    basis = analysis_basis(size, signal.device, window)
     flat = torch.matmul(frames, basis)
     bins = size // 2 + 1
     return torch.complex(flat[..., :bins], flat[..., bins:])
@@ -133,6 +143,7 @@ def istft(
     *,
     fading: bool = True,
     method: Method = "matmul",
+    window: str = "blackman",
 ) -> torch.Tensor:
     """Inverse STFT of ``[..., frames, size//2+1]`` → ``[..., samples]``.
 
@@ -144,12 +155,14 @@ def istft(
         raise ValueError(f"expected {bins} bins, got {spectrum.shape[-1]}")
     if method == "fft":
         ws = torch.as_tensor(
-            biorthogonal_synthesis_window(size, shift), dtype=torch.float32, device=spectrum.device
+            biorthogonal_synthesis_window(size, shift, window=window),
+            dtype=torch.float32,
+            device=spectrum.device,
         )
         frames_td = torch.fft.irfft(spectrum, n=size, dim=-1) * ws
     else:
         flat = torch.cat([spectrum.real, spectrum.imag], dim=-1).to(torch.float32)
-        basis = synthesis_basis(size, shift, spectrum.device)
+        basis = synthesis_basis(size, shift, spectrum.device, window)
         frames_td = torch.matmul(flat, basis)
     signal = overlap_add(frames_td, shift)
     if fading:

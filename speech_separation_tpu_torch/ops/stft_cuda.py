@@ -3,6 +3,8 @@
 :func:`stft_cuda` runs ``csrc/stft_analysis.cu`` on the unpadded signal:
 framing (the fade pads folded into the index), window and a real FFT in one
 pass, written as interleaved complex64 and returned as a view with no copy.
+The window is a table the kernel reads (``window``: ``"blackman"`` or
+``"sqrt_hann"``, ``windows.analysis_window``), so either runs the same code.
 Its plain version is ``stft.stft(method="matmul")``, which it takes where
 ``dispatch.use_plain`` says (a CPU tensor, or inside ``plain_versions()``);
 otherwise it launches the kernel or raises.
@@ -37,23 +39,25 @@ def _check_size(size: int, shift: int) -> None:
         raise ValueError(f"stft_cuda: shift {shift} does not divide size {size}")
 
 
-def _fft_table_np(size: int) -> np.ndarray:
+def _fft_table_np(size: int, window: str = "blackman") -> np.ndarray:
     """``[3 * size]`` float64: the analysis window, then ``exp(-2 pi i k / size)``
     for ``k < size`` as (re, im) pairs."""
     ang = -2.0 * np.pi * np.arange(size, dtype=np.float64) / size
     twiddles = np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1)
-    return np.concatenate([analysis_window(size), twiddles])
+    return np.concatenate([analysis_window(size, window=window), twiddles])
 
 
 @functools.lru_cache(maxsize=32)
-def fft_table(size: int, device=None) -> torch.Tensor:
-    """The kernel's fp32 table, rounded once from float64 per (size, device); read-only."""
+def fft_table(size: int, device=None, window: str = "blackman") -> torch.Tensor:
+    """The kernel's fp32 table, rounded once from float64 per (size, device,
+    window); read-only."""
     with torch.inference_mode(False):
-        return torch.as_tensor(_fft_table_np(size), dtype=torch.float32, device=device)
+        return torch.as_tensor(_fft_table_np(size, window), dtype=torch.float32, device=device)
 
 
 def stft_fft_plain(
-    signal: torch.Tensor, size: int = 256, shift: int = 128, *, fading: bool = True
+    signal: torch.Tensor, size: int = 256, shift: int = 128, *, fading: bool = True,
+    window: str = "blackman",
 ) -> torch.Tensor:
     """The kernel's algorithm in PyTorch: ``[B, frames, size//2+1]`` complex64.
 
@@ -63,21 +67,21 @@ def stft_fft_plain(
     twiddles from :func:`fft_table`, then the split step to real-FFT bins.
     """
     if signal.dim() == 1:
-        return stft_fft_plain(signal[None], size, shift, fading=fading)[0]
+        return stft_fft_plain(signal[None], size, shift, fading=fading, window=window)[0]
     _check_size(size, shift)
     x = signal.to(torch.float32)
     batch, samples = x.shape
     pad = size - shift if fading else 0
     frames = stft_frame_count(samples, size, shift, fading)
     half = size // 2
-    table = fft_table(size, x.device)
-    window = table[:size]
+    table = fft_table(size, x.device, window)
+    taper = table[:size]
     tw = torch.complex(table[size::2], table[size + 1 :: 2])
 
     idx = (torch.arange(frames, device=x.device)[:, None] * shift
            + torch.arange(size, device=x.device)[None, :] - pad)
     inside = (idx >= 0) & (idx < samples)
-    xs = x[:, idx.clamp(0, max(samples - 1, 0))] * inside * window
+    xs = x[:, idx.clamp(0, max(samples - 1, 0))] * inside * taper
     z = torch.complex(xs[..., 0::2], xs[..., 1::2])  # [B, F, half]
 
     lead = z.shape[:-1]
@@ -105,7 +109,8 @@ def stft_fft_plain(
 
 
 def stft_cuda(
-    signal: torch.Tensor, size: int = 256, shift: int = 128, *, fading: bool = True
+    signal: torch.Tensor, size: int = 256, shift: int = 128, *, fading: bool = True,
+    window: str = "blackman",
 ) -> torch.Tensor:
     """Batched complex STFT ``[B, frames, size//2+1]`` of ``signal`` ``[B, samples]``.
 
@@ -113,9 +118,9 @@ def stft_cuda(
     be a power of two in [16, 1024] (``ValueError`` otherwise).
     """
     if signal.dim() == 1:
-        return stft_cuda(signal[None], size, shift, fading=fading)[0]
+        return stft_cuda(signal[None], size, shift, fading=fading, window=window)[0]
     if use_plain(signal):
-        return stft(signal, size, shift, fading=fading, method="matmul")
+        return stft(signal, size, shift, fading=fading, method="matmul", window=window)
     if signal.device.type != "cuda":
         raise ValueError(f"stft_cuda: unsupported device {signal.device}")
     if signal.dim() != 2:
@@ -129,7 +134,7 @@ def stft_cuda(
     bins = size // 2 + 1
     out = torch.empty((batch, frames, bins, 2), dtype=torch.float32, device=signal.device)
     if batch and frames:
-        table = fft_table(size, signal.device)
+        table = fft_table(size, signal.device, window)
         with torch.cuda.device(signal.device):
             code = _build.library().sst_stft_analysis(
                 signal.data_ptr(), table.data_ptr(), out.data_ptr(),

@@ -16,6 +16,12 @@ depend on them:
    (the ``analysis_index + 1 < fft_size`` guard);
 2. the ``1 / fft_size`` normalisation is cancelled by a later ``*= size``
    (so the net synthesis window is ``analysis / sum_of_squares``).
+
+The port's own second window, ``window="sqrt_hann"`` (TF-GridNet's STFT,
+``models/tfgridnet.py``; no JAX counterpart), is the square root of the
+periodic Hann window of ``size`` samples. Its dual is the same
+``analysis / sum_of_squares`` over every index: the first idiosyncrasy
+belongs to the Blackman path alone, whose last sample is zero anyway.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ import functools
 
 import numpy as np
 
-__all__ = ["blackman", "biorthogonal_synthesis_window", "analysis_window"]
+__all__ = ["WINDOWS", "blackman", "sqrt_hann", "biorthogonal_synthesis_window", "analysis_window"]
+
+WINDOWS = ("blackman", "sqrt_hann")
 
 
 def blackman(length: int) -> np.ndarray:
@@ -36,17 +44,30 @@ def blackman(length: int) -> np.ndarray:
     return 0.42 - 0.5 * np.cos(x) + 0.08 * np.cos(2.0 * x)
 
 
-def analysis_window(size: int, window_length: int | None = None) -> np.ndarray:
-    """Blackman analysis window of ``window_length`` zero-padded to ``size``."""
+def sqrt_hann(length: int) -> np.ndarray:
+    """Square root of the periodic Hann window (``torch.hann_window(length)``'s)."""
+    n = np.arange(length, dtype=np.float64)
+    return np.sqrt(0.5 - 0.5 * np.cos(2.0 * np.pi * n / length))
+
+
+def analysis_window(
+    size: int, window_length: int | None = None, window: str = "blackman"
+) -> np.ndarray:
+    """Analysis window of ``window_length`` (default ``size``) zero-padded
+    to ``size``: ``"blackman"`` or ``"sqrt_hann"``."""
+    make = {"blackman": blackman, "sqrt_hann": sqrt_hann}.get(window)
+    if make is None:
+        raise ValueError(f"unknown window {window!r} (one of {', '.join(WINDOWS)})")
     if window_length is None:
-        return blackman(size)
-    win = blackman(window_length)
-    return np.pad(win, (0, size - window_length))
+        return make(size)
+    return np.pad(make(window_length), (0, size - window_length))
 
 
 @functools.lru_cache(maxsize=32)
-def _biorthogonal_cached(size: int, shift: int, window_length: int | None) -> np.ndarray:
-    win = analysis_window(size, window_length)
+def _biorthogonal_cached(
+    size: int, shift: int, window_length: int | None, window: str
+) -> np.ndarray:
+    win = analysis_window(size, window_length, window)
     if size % shift != 0:
         raise ValueError(f"fft size {size} must be a multiple of shift {shift}")
     n_shifts = size // shift
@@ -54,9 +75,10 @@ def _biorthogonal_cached(size: int, shift: int, window_length: int | None) -> np
     # Periodic sum of squares of the analysis window with period `shift`.
     # One extra period is scanned (n_shifts + 1) but indices ≥ size - 1 are
     # excluded — including, deliberately, index size - 1 itself to match the
-    # reference's off-by-one (its `analysis_index + 1 < fft_size` test).
+    # reference's off-by-one (its `analysis_index + 1 < fft_size` test) on
+    # the Blackman path; the square-root Hann sums every index below size.
     idx = np.arange(shift)[:, None] + shift * np.arange(n_shifts + 1)[None, :]
-    valid = idx + 1 < size
+    valid = idx + 1 < size if window == "blackman" else idx < size
     sq = np.where(valid, np.square(win[np.minimum(idx, size - 1)]), 0.0)
     sum_of_squares = np.tile(sq.sum(axis=1), n_shifts)
 
@@ -66,7 +88,7 @@ def _biorthogonal_cached(size: int, shift: int, window_length: int | None) -> np
 
 
 def biorthogonal_synthesis_window(
-    size: int, shift: int, window_length: int | None = None
+    size: int, shift: int, window_length: int | None = None, window: str = "blackman"
 ) -> np.ndarray:
     """Net synthesis window used by the overlap-add iSTFT (float64)."""
-    return _biorthogonal_cached(size, shift, window_length).copy()
+    return _biorthogonal_cached(size, shift, window_length, window).copy()

@@ -9,7 +9,7 @@ the training kernels in their keep mode and the loss is
 :func:`~..losses.pit.pit_loss_packed`, per utterance;
 :func:`make_upit_packed_resident_steps` takes row indices into a corpus held
 on the device (``data/device_dataset.py``). :func:`make_time_domain_steps`
-trains Conv-TasNet, DPRNN-TasNet and SepFormer wave to wave on the negative
+trains Conv-TasNet, DPRNN-TasNet, SepFormer and TF-GridNet wave to wave on the negative
 permutation-best SI-SDR, through the module's own autograd or, with ``pallas_trunk=True``, through the
 TCN trunk's training kernels (``models/tasnet_serving.py::train_apply``).
 :func:`make_vae_steps` trains the VQ-VAE codecs on their reconstruction loss
@@ -169,7 +169,7 @@ def make_time_domain_steps(
     pallas_trunk: bool = False,
 ) -> tuple[Callable, Callable]:
     """``(train_step, eval_step)`` for a wave-in, wave-out separator
-    (``ConvTasNet``, ``DPRNN``, ``SepFormer``) over ``(state, mix [B,
+    (``ConvTasNet``, ``DPRNN``, ``SepFormer``, ``TFGridNet``) over ``(state, mix [B,
     samples], sources [B, S, samples], sample_lengths [B])``; the loss is :func:`pit_si_sdr_loss` in
     fp32 on the estimates cast back, after int16 dequantization.
 

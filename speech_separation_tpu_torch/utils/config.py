@@ -2,11 +2,13 @@
 ``utils/config.py``).
 
 :class:`UPitTrainConfig` keeps the JAX package's field names and defaults, so
-one ``cfg.json`` configures either package (the ``dprnn_*`` and
-``sepformer_*`` fields are the port's own). ``variant`` is ``"blstm"``,
-``"tasnet"``, ``"dprnn"`` (DPRNN-TasNet, ``models/dprnn.py``) or
-``"sepformer"`` (SepFormer, ``models/sepformer.py``), each served and trained
-(``tasnet_pallas_trunk`` trains
+one ``cfg.json`` configures either package (the ``dprnn_*``, ``sepformer_*``
+and ``tfgridnet_*`` fields are the port's own). ``variant`` is ``"blstm"``,
+``"tasnet"``, ``"dprnn"`` (DPRNN-TasNet, ``models/dprnn.py``), ``"sepformer"``
+(SepFormer, ``models/sepformer.py``) or ``"tfgridnet"`` (TF-GridNet,
+``models/tfgridnet.py``), each served and trained (TF-GridNet trains on the
+plain path only: its attention kernel has no backward;
+``tasnet_pallas_trunk`` trains
 Conv-TasNet through the trunk's training kernels; ``pack`` trains the BLSTM
 on sequence-packed rows; ``dynamic_mix`` remixes the training stream every
 epoch). Fields whose feature the port does not serve raise ``ValueError`` when
@@ -59,7 +61,7 @@ class UPitTrainConfig:
     data_root: str = "./mycode/wsj0_2mix/use_this"
     train_split: str = "tr"
     val_split: str = "cv"
-    variant: str = "blstm"  # "blstm", "tasnet", "dprnn" or "sepformer" in the port; "conv" waits
+    variant: str = "blstm"  # "blstm", "tasnet", "dprnn", "sepformer", "tfgridnet"; "conv" waits
     batch_size: int = 2
     epochs: int = 5
     patience: int = 50
@@ -104,6 +106,14 @@ class UPitTrainConfig:
     sepformer_layers: int = 8
     sepformer_chunk: int = 250
     sepformer_blocks: int = 2
+    tfgridnet_n_fft: int = 256
+    tfgridnet_hop: int = 64
+    tfgridnet_d_model: int = 128
+    tfgridnet_blocks: int = 4
+    tfgridnet_kernel: int = 4
+    tfgridnet_hidden: int = 256
+    tfgridnet_heads: int = 4
+    tfgridnet_qk_dim: int = 512
     checkpoint_dir: str = "./CKPT"
     seed: int = 42
     stft: StftConfig = field(default_factory=StftConfig)
@@ -111,9 +121,10 @@ class UPitTrainConfig:
 
     def __post_init__(self) -> None:
         unserved = []
-        if self.variant not in ("blstm", "tasnet", "dprnn", "sepformer"):
+        if self.variant not in ("blstm", "tasnet", "dprnn", "sepformer", "tfgridnet"):
             unserved.append(
-                f"variant={self.variant!r} (only 'blstm', 'tasnet', 'dprnn' and 'sepformer')"
+                f"variant={self.variant!r} (only 'blstm', 'tasnet', 'dprnn', 'sepformer' and "
+                "'tfgridnet')"
             )
         if self.dynamic_mix and self.pack:
             # the JAX CLI drops dynamic mixing under pack without a word; the

@@ -1417,6 +1417,37 @@ def test_residual_layer_norm_matches_plain(cuda_device, dim, rows, branch, out):
         assert _bf16_ulps(got, want) <= 1.0
 
 
+@pytest.mark.parametrize("branch", [torch.float32, None], ids=["add_fp32_branch", "norm"])
+@pytest.mark.parametrize("rows", [31, 160_000])
+def test_residual_layer_norm_in_tfgridnets_form(cuda_device, rows, branch):
+    """TF-GridNet's form (``models/tfgridnet.py``): an fp32 branch or none,
+    rows of D = 128 channels, bf16 rows out, eps 1e-5. The rows' scales run
+    from 10^-3 to 3, so the first rows' variance is near eps: the plain
+    version at SepFormer's eps 1e-6 lies hundreds of bf16 ulps away, and the
+    kernel must match the one at the eps it was given."""
+    from speech_separation_tpu_torch.ops.layer_norm_cuda import (
+        EPS,
+        residual_layer_norm,
+        residual_layer_norm_plain,
+    )
+
+    dim, eps, out = 128, 1e-5, torch.bfloat16
+    scale = torch.logspace(-3, 0.5, rows)[:, None]
+    x = (scale * (3 * _normal((rows, dim), seed=224) + 0.5)).to(cuda_device)
+    y = None if branch is None else (scale * _normal((rows, dim), seed=225)).to(cuda_device, branch)
+    gamma = (1 + 0.2 * _normal((dim,), seed=226)).to(cuda_device)
+    beta = _normal((dim,), seed=227).to(cuda_device)
+    want_sum, want = residual_layer_norm_plain(x, y, gamma, beta, out, eps)
+    with torch.inference_mode():
+        before = residual_layer_norm.launches
+        got_sum, got = residual_layer_norm(x.clone(), y, gamma, beta, out, eps)
+        assert residual_layer_norm.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == out and torch.equal(got_sum, want_sum)
+    assert _bf16_ulps(got, want) <= 1.0
+    assert _bf16_ulps(got, residual_layer_norm_plain(x, y, gamma, beta, out, EPS)[1]) > 1.0
+
+
 def test_residual_layer_norm_refusals(cuda_device):
     from speech_separation_tpu_torch.ops.layer_norm_cuda import (
         MAX_DIM,
@@ -1466,3 +1497,142 @@ def test_sepformer_serving_norms_only_in_the_fused_kernel(cuda_device):
     # fraction of the rows, one ulp each), carried through bf16 products: below
     # the bf16 path's own distance from fp32 (~1e-2 at the published widths)
     assert _rel(got, want) <= 2e-2
+
+
+# TF-GridNet's attention scores on the card: the wide-head kernel against the
+# plain version (fp32 scores and softmax) on the same bf16 inputs. Both sum the
+# scores in fp32, in other orders (~1e-6 of |s|, ~1e-5 at the scales here);
+# the kernel rounds each probability once to bf16 (2^-9 relative), so each
+# element is within 2^-8 of the plain one relative to its size, past a floor
+# of 1e-6 for the smallest.
+SCORES_REL = 2.0**-8
+SCORES_FLOOR = 1e-6
+
+
+def _wide(items, length, depth, seed, device, offset=0):
+    """bf16 [items, length, depth] from the seed, scores spread by a factor of 3;
+    ``offset`` elements into a flat buffer (a pointer 2 bytes off 8-byte alignment)."""
+    n = items * length * depth
+    flat = torch.empty(n + offset, dtype=torch.bfloat16, device=device)
+    flat[offset:] = (3 * _normal((n,), seed=seed)).to(device, torch.bfloat16)
+    return flat[offset:].view(items, length, depth)
+
+
+@pytest.mark.parametrize("items,length,depth,offset", [(16, 1_253, 516, 0), (8, 501, 516, 0),
+                                                       (5, 7, 516, 0), (6, 131, 37, 0),
+                                                       (4, 65, 516, 1)],
+                         ids=["L1253", "L501", "L7", "odd_width", "misaligned"])
+def test_wide_attention_scores_match_plain(cuda_device, items, length, depth, offset):
+    from speech_separation_tpu_torch.ops.wide_attention_cuda import (
+        wide_attention_scores,
+        wide_attention_scores_plain,
+    )
+
+    q = _wide(items, length, depth, 230, cuda_device, offset)
+    k = _wide(items, length, depth, 231, cuda_device, offset)
+    before = wide_attention_scores.launches
+    with torch.inference_mode():
+        got = wide_attention_scores(q, k)
+        again = wide_attention_scores(q, k)
+    torch.cuda.synchronize()
+    assert wide_attention_scores.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (items, length, length)
+    assert torch.equal(got, again)  # reruns bit-identical
+    want = wide_attention_scores_plain(q, k)
+    excess = (got.float() - want).abs() - SCORES_REL * want - SCORES_FLOOR
+    assert excess.max().item() <= 0.0
+    # each row's fp32 probabilities sum to 1 before their one rounding to bf16
+    assert (got.float().sum(-1) - 1).abs().max().item() <= 2.0**-8
+
+
+def test_wide_attention_matches_plain_and_refuses(cuda_device):
+    from speech_separation_tpu_torch.ops.wide_attention_cuda import (
+        wide_attention,
+        wide_attention_plain,
+        wide_attention_scores,
+    )
+
+    q = _wide(8, 301, 516, 232, cuda_device)
+    k = _wide(8, 301, 516, 233, cuda_device)
+    v = _wide(8, 301, 4_128, 234, cuda_device)
+    with torch.inference_mode():
+        got = wide_attention(q, k, v)
+    assert got.dtype == torch.bfloat16 and got.shape == v.shape
+    assert _rel(got, wide_attention_plain(q, k, v)) <= 1e-2  # P and the product in bf16
+    with torch.inference_mode():
+        with pytest.raises(TypeError, match="takes bf16"):
+            wide_attention_scores(q.float(), k.float())
+        with pytest.raises(ValueError, match="of one shape"):
+            wide_attention_scores(q, k[:, :300])
+        with pytest.raises(ValueError, match="one CUDA device"):
+            wide_attention_scores(q, k.cpu())
+    with pytest.raises(RuntimeError, match="no backward"):
+        wide_attention_scores(q.clone().requires_grad_(True), k)
+
+
+@pytest.mark.parametrize("rows,steps", [(2_064, 1_250), (20_048, 126)], ids=["inter", "intra"])
+def test_lstm_recurrence_at_tfgridnets_width(cuda_device, rows, steps):
+    """Row 2 at H = 256 in bf16 over a 16 x 10 s batch's sub-band rows (16 x
+    129 bins of 1,250 windows) and intra-frame rows (16 x 1,253 frames of 126
+    windows), one launch a row slice of at most 1,024 rows."""
+    hidden = 256
+    gen = torch.Generator(device=cuda_device).manual_seed(235)
+    xw = 0.5 * torch.randn(2, rows, steps, 4 * hidden, generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16)
+    u = (torch.randn(2, hidden, 4 * hidden, generator=gen, device=cuda_device) / hidden**0.5
+         ).to(torch.bfloat16)
+    plan = forward_plan(rows, hidden, True, 2, **_lstm_limits(cuda_device))
+    before = lstm_recurrence.launches
+    got = lstm_recurrence(xw, u, reverse=(False, True))
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches - before == len(plan.slices) == -(-rows // 1_024)
+    want = lstm_recurrence_plain(xw, u, reverse=(False, True))
+    assert (got.float() - want.float()).abs().max().item() <= LSTM_BF16_ATOL
+
+
+def test_stft_kernel_with_the_sqrt_hann_window(cuda_device):
+    x = _normal((16, 80_000), seed=236).to(cuda_device)
+    got = stft_cuda(x, 256, 64, window="sqrt_hann")
+    want = stft(x, 256, 64, window="sqrt_hann")
+    assert got.shape == want.shape == (16, 1_253, 129)
+    assert (got - want).abs().max().item() <= STFT_ATOL
+    assert (got - stft(x, 256, 64, method="fft", window="sqrt_hann")).abs().max().item() <= STFT_ATOL
+
+
+def test_tfgridnet_serving_matches_the_reference(cuda_device):
+    """``serving_fn(bf16=True)`` at the published widths on 2 × 4 s against
+    the benchmark's fp32 reference, within the cell's ``est_rel_err`` limit:
+    the BiLSTMs in row 2, each norm over the channels in the fused kernel,
+    each block's attention in one scores launch; the fp32 module refuses to
+    run its attention outside the kernel."""
+    import json
+
+    from bench_torch.reference import tfgridnet as reference
+    from speech_separation_tpu_torch.models.tfgridnet import TFGridNet, serving_fn
+    from speech_separation_tpu_torch.ops.layer_norm_cuda import residual_layer_norm
+    from speech_separation_tpu_torch.ops.wide_attention_cuda import wide_attention_scores
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "bench_torch"
+    cfg = json.loads((root / "configs" / "tfgridnet.json").read_text())
+    limit = json.loads((root / "limits" / "tfgridnet_separate.json").read_text())["est_rel_err"]
+    weights = reference.make_weights(cfg, 2**31 + 43, cuda_device)
+    model = TFGridNet().to(cuda_device)
+    model.load_state_dict(weights)
+    mix = _normal((2, 32_000), seed=237).to(cuda_device)
+    counters = (lstm_recurrence, residual_layer_norm, wide_attention_scores)
+    before = [c.launches for c in counters]
+    with Dispatched() as seen:
+        got = serving_fn(model, bf16=True)(mix)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    # 2 x 503 intra rows and 2 x 129 inter rows: one slice each, a block
+    assert launched == [2 * cfg["blocks"], 2 * cfg["blocks"], cfg["blocks"]]
+    assert not [op for op in seen.ops if "layer_norm" in op or "attention" in op], seen.ops
+    want = reference.separate(weights, cfg, mix)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, 2, 32_000)
+    for r in range(2):
+        assert _rel(got[r], want[r]) <= limit
+    with pytest.raises(TypeError, match="takes bf16"):
+        serving_fn(model)(mix)
+    with plain_versions():  # the plain attention serves fp32 on the card
+        assert _rel(serving_fn(model)(mix), want) <= 1e-4

@@ -288,13 +288,14 @@ def test_tiling_constants_match_the_kernel_source():
 
 def _c_entries() -> dict:
     """Each ``extern "C"`` entry of csrc/*.cu: its name and its parameters as
-    ctypes would pass them (pointer or int)."""
+    ctypes would pass them (pointer, float or int)."""
     entries = {}
     for source in sorted(CSRC.glob("*.cu")):
         text = source.read_text()
         for name, params in re.findall(r'extern "C" [\w ]+?\**\s*(sst_\w+)\(([^)]*)\)', text):
             entries[name] = tuple(
-                _build._P if "*" in p else _build._I for p in params.split(",") if p.strip()
+                _build._P if "*" in p else _build._F if "float" in p else _build._I
+                for p in params.split(",") if p.strip()
             )
     return entries
 

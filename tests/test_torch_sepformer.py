@@ -217,7 +217,9 @@ def test_residual_layer_norm_refuses_what_the_kernel_does_not_take(case):
 
 def test_residual_layer_norm_constants_match_the_kernel():
     src = (ROOT / "speech_separation_tpu_torch" / "csrc" / "residual_layer_norm.cu").read_text()
-    assert float(re.search(r"kEps = ([0-9.e+-]+)f;", src).group(1)) == layer_norm_cuda.EPS == 1e-6
+    # eps is the entry's argument; SepFormer's 1e-6 is the wrapper's default
+    assert re.search(r"int y_bf16, int out_bf16,\s+float eps, void\* stream\)", src)
+    assert "+ eps);" in src and layer_norm_cuda.EPS == 1e-6
     assert int(re.search(r"kMaxDim = (\d+);", src).group(1)) == layer_norm_cuda.MAX_DIM == 1024
     assert "residual_layer_norm_kernel" in src  # the name the benchmark's LN readers find
 

@@ -359,8 +359,8 @@ def test_config_fields_and_defaults_match_jax(tmp_path):
     got = UPitTrainConfig()
     import dataclasses
 
-    # every JAX field with its default; beside them only DPRNN-TasNet's and
-    # SepFormer's widths, variants the JAX package does not have
+    # every JAX field with its default; beside them only DPRNN-TasNet's,
+    # SepFormer's and TF-GridNet's widths, variants the JAX package does not have
     got_fields, want_fields = dataclasses.asdict(got), dataclasses.asdict(want)
     port_only = {k: got_fields.pop(k) for k in list(got_fields) if k not in want_fields}
     assert got_fields == want_fields
@@ -368,7 +368,10 @@ def test_config_fields_and_defaults_match_jax(tmp_path):
                          "dprnn_hidden": 128, "dprnn_chunk": 250, "dprnn_blocks": 6,
                          "sepformer_enc_dim": 256, "sepformer_win": 16, "sepformer_d_model": 256,
                          "sepformer_heads": 8, "sepformer_ffn": 1024, "sepformer_layers": 8,
-                         "sepformer_chunk": 250, "sepformer_blocks": 2}
+                         "sepformer_chunk": 250, "sepformer_blocks": 2,
+                         "tfgridnet_n_fft": 256, "tfgridnet_hop": 64, "tfgridnet_d_model": 128,
+                         "tfgridnet_blocks": 4, "tfgridnet_kernel": 4, "tfgridnet_hidden": 256,
+                         "tfgridnet_heads": 4, "tfgridnet_qk_dim": 512}
     path = tmp_path / "cfg.json"
     jax_config.save_config(jax_config.UPitTrainConfig(hidden=24, bf16_compute=True), path)
     loaded = load_config(UPitTrainConfig, path, {"epochs": 3, "batch_size": None})
