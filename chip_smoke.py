@@ -217,6 +217,19 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    (15,152,696 parameters) on 2 × 4 s against the fp32 reference within the
    ``tfgridnet_separate`` cell's ``est_rel_err`` limit, one scores launch a
    block (the kernels line's ``launches``, counted from 0 for that call).
+27. Conv-TasNet's mask head and decoder in one kernel
+   (``ops/mask_decode_cuda.py``, ``csrc/mask_decode.cu``; no TPU kernel) at
+   the ``tasnet_stream`` cell's window (B = 1, K = 800 frames, 2 × 256
+   channels, win 40) and a bulk 16 × 8 s batch (K = 3,200): against its plain
+   version (relative L2 within 1e-4, each sample within a bf16 ulp of the
+   largest), reruns bit-identical, then timed back to back beside its bound,
+   the plain version, cuDNN's ``F.conv_transpose1d`` alone (``library_ms``,
+   the decoder the port ran before, on the masked features and the flipped
+   kernel made beforehand) and the whole chain it replaces (``chain_ms``:
+   bias, sigmoid, product, copy, ``decode``, ``.float()``); then
+   ``StreamingSeparator`` over ``cuda_apply`` at the cell's widths, hop and
+   context, one launch a hop, none under ``plain_versions()``, each hop
+   within the cell's ``hop_rel_err`` limit of the plain versions'.
 
 Phase 15 also holds the search's NaN picks: a NaN score orders below every
 number, so a row holding one gets its first NaN's index, as ``torch.argmin``
@@ -232,7 +245,7 @@ against 4 (N D + D K + N) bytes); and the time of one PyTorch call computing
 the same function where there is one (``torch.stft``, cuDNN ``nn.LSTM``),
 used nowhere in the port.
 
-Phases run in the order 1 to 19, 21 to 26, then 20. The kernels line gives
+Phases run in the order 1 to 19, 21 to 27, then 20. The kernels line gives
 each kernel's launches on the dynamic-mixing path of phase 21
 (``launches_dynamic_mix``) and the trunk kernel's on the window streaming
 path of phase 22 (``launches_streaming``, ``launches_streaming_cli``) with its
@@ -363,6 +376,15 @@ DPRNN_BATCH, DPRNN_SECONDS = 16, 10.0
 DPRNN_ROWS = ((16 * 641, 250), (16 * 250, 641))
 # SepFormer's token rows in a 16 x 10 s batch: 16 items x 81 chunks x K = 250, d = 256
 NORM_ROWS, NORM_DIM = 16 * 81 * 250, 256
+# Phase 27: the tasnet_stream cell's window (1.5 s of context + a 0.5 s hop at
+# 8 kHz, K = 800 frames at win 40) and a bulk 16 x 8 s batch (K = 3,200)
+DECODE_SHAPES = (("hop", 1, 800), ("bulk", 16, 3_200))
+# The mask-and-decode kernel against its plain version on the same bf16
+# operands: v rounded once to bf16 on both sides (a sigmoid an fp32 ulp apart
+# can flip one rounding: 2^-8 of one of a sample's 2 N terms), exact products
+# summed in fp32 in other orders; relative L2, and each sample within a bf16
+# ulp of the largest (tests/test_torch_cuda.py's MASK_DECODE_REL)
+MASK_DECODE_REL = 1e-4
 DPRNN_BF16_DB = 20.0
 # TF-GridNet in a 16 x 10 s batch: 16 items x 4 heads of 1,253 frames, Q and K
 # rows of 4 x 129 values, V rows of 32 x 129; row 2's intra (16 x 1,253 frames
@@ -698,6 +720,8 @@ def main() -> int:
     norm = sepformer_phases(device, gen)
     torch.cuda.empty_cache()
     scores = tfgridnet_phases(device, gen)
+    torch.cuda.empty_cache()
+    decode = tasnet_decode_phases(device, gen)
     scoring_phases(device, kept)
     kept_dir.cleanup()
     for entry in train:  # rows 3 and 4: their keep-mode launches on the packed path
@@ -756,6 +780,7 @@ def main() -> int:
         codec,
         norm,
         scores,
+        decode,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
@@ -3278,6 +3303,118 @@ def tfgridnet_phases(device, gen) -> dict:
           f"launches a call; worst rel L2 {err:.3e} against the fp32 reference (<= "
           f"{limit['est_rel_err']})")
     del model, weights, mix, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def tasnet_decode_phases(device, gen) -> dict:
+    """Phase 27; returns the mask-and-decode kernel's entry for the kernels line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bench_torch.programs import conv_tasnet as program
+    from bench_torch.reference import conv_tasnet as reference
+    from speech_separation_tpu_torch.models.tasnet import conv_transpose_pads, decode
+    from speech_separation_tpu_torch.models.tasnet_serving import cuda_apply
+    from speech_separation_tpu_torch.ops import plain_versions
+    from speech_separation_tpu_torch.ops.mask_decode_cuda import mask_decode, mask_decode_plain
+    from speech_separation_tpu_torch.separate.streaming import StreamingSeparator
+
+    root = pathlib.Path(__file__).resolve().parent
+    cfg = json.loads((root / "bench_torch" / "configs" / "conv_tasnet.json").read_text())
+    limit = json.loads((root / "bench_torch" / "limits" / "tasnet_stream.json").read_text())
+    n, win, s = cfg["enc_dim"], cfg["win"], cfg["num_speakers"]
+    stride = win // 2
+    left = conv_transpose_pads(win, stride)[0]
+    bf16 = torch.bfloat16
+    out = {"name": "mask_decode", "route": "cuda",
+           "source": "speech_separation_tpu_torch/csrc/mask_decode.cu", "replaces": None}
+    for tag, batch, frames in DECODE_SHAPES:
+        samples = frames * stride
+        ops = ((torch.randn(batch, frames, s * n, generator=gen, device=device)).to(bf16),
+               (0.1 * torch.randn(s * n, generator=gen, device=device)).to(bf16),
+               torch.relu(torch.randn(batch, n, frames, generator=gen, device=device)).to(bf16)
+               .transpose(1, 2),  # the encoder's layout
+               (torch.randn(win, n, 1, generator=gen, device=device) / math.sqrt(n)).to(bf16),
+               (0.1 * torch.randn(1, generator=gen, device=device)).to(bf16))
+        logits, mask_b, feats, dec_k, dec_b = ops
+        with torch.inference_mode():
+            got, again = mask_decode(*ops, samples), mask_decode(*ops, samples)
+            want = mask_decode_plain(*ops, samples)
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        worst = ((got - want).abs().max() / want.abs().max()).item()
+        if not (torch.equal(got, again) and err <= MASK_DECODE_REL and worst <= 2.0**-8):
+            raise AssertionError(f"mask_decode {tag} B={batch} K={frames}: rel L2 {err} (<= "
+                                 f"{MASK_DECODE_REL}), worst sample {worst} of the largest "
+                                 f"(<= 2^-8), rerun bit-identical {torch.equal(got, again)}")
+
+        def chain():  # what cuda_apply ran before: models/tasnet_serving.py::_mask_and_decode
+            masks = torch.sigmoid(logits + mask_b)
+            masked = masks.view(batch, frames, s, n) * feats[:, :, None, :]
+            masked = masked.transpose(1, 2).reshape(batch * s, frames, n)
+            wav = decode(masked, dec_k, dec_b, win)
+            return wav.reshape(batch, s, -1).float()[:, :, :samples]
+
+        # the library's transposed conv alone, on the masked features and the
+        # flipped kernel made beforehand (decode's conv_transpose_same)
+        chain_input = (torch.sigmoid(logits + mask_b).view(batch, frames, s, n)
+                       * feats[:, :, None, :]).permute(0, 2, 3, 1).reshape(batch * s, n, frames)
+        weight = dec_k.flip(0).permute(1, 2, 0).contiguous()
+        pad = (win - 1 - left, max(win + stride - 2 - 2 * left, 0))
+        with torch.inference_mode():
+            ms = device_ms(lambda: mask_decode(*ops, samples), iters=200)
+            plain_ms = device_ms(lambda: mask_decode_plain(*ops, samples), iters=50)
+            chain_ms = device_ms(chain, iters=20)
+            lib_ms = device_ms(lambda: F.conv_transpose1d(
+                chain_input, weight, dec_b, stride=stride, padding=pad[0],
+                output_padding=pad[1]), iters=20)
+        del chain_input, weight
+        nbytes = 2 * sum(t.numel() for t in ops) + 4 * batch * s * samples
+        entry = bound(nbytes, 2 * batch * s * frames * n * win, BF16_FLOPS)
+        out[tag] = {"batch": batch, "frames": frames, "rel_l2": err, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms, "chain_ms": chain_ms, **entry,
+                    "bound_share": 100 * entry["bound_ms"] / ms}
+        phase("tasnet-decode", f"mask_decode {tag} B={batch} K={frames} N={n} S={s} win {win} "
+              f"bf16: rel L2 {err:.3e} <= {MASK_DECODE_REL}, worst sample {worst:.3e} of the "
+              f"largest, rerun bit-identical; {1e3 * ms:.2f} us a launch, bound "
+              f"{1e3 * entry['bound_ms']:.3f} us ({entry['bound_by']}, "
+              f"{out[tag]['bound_share']:.1f}%); plain {plain_ms:.4f} ms; cuDNN's "
+              f"F.conv_transpose1d alone {lib_ms:.4f} ms; the chain it replaces (bias, sigmoid, "
+              f"product, copy, decode, .float()) {chain_ms:.4f} ms")
+        del ops, logits, mask_b, feats, dec_k, dec_b, got, again, want
+        torch.cuda.empty_cache()
+    out.update({k: out["hop"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                           "bound_share")})
+
+    # the streaming engine over cuda_apply at the cell's widths, hop and
+    # context: one launch a hop, each hop within the cell's hop_rel_err limit
+    # of the plain versions'
+    weights = reference.make_weights(cfg, 2**31 + 45, device)
+    model = program.build(cfg, weights, device)
+    hop, hops = 4_000, 6
+    mix = (0.3 * torch.randn(hops * hop, generator=gen, device=device)).cpu().numpy()
+    streams, launched = {}, {}
+    for plain in (False, True):
+        sep = StreamingSeparator(lambda m: cuda_apply(model, m.to(device)), hop_seconds=0.5,
+                                 context_seconds=1.5)
+        before = mask_decode.launches
+        with plain_versions(plain):
+            streams[plain] = [sep.push(mix[i * hop:(i + 1) * hop]) for i in range(hops)]
+        launched[plain] = mask_decode.launches - before
+    errs = [float(np.linalg.norm(g - w) / np.linalg.norm(w))
+            for g, w in zip(streams[False], streams[True])]
+    if launched != {False: hops, True: 0} or max(errs) > limit["hop_rel_err"]:
+        raise AssertionError(f"mask_decode on the window stream: launches {launched} for "
+                             f"{hops} hops, worst hop rel L2 {max(errs)} against the plain "
+                             f"versions (<= {limit['hop_rel_err']})")
+    out.update({"launches": launched[False], "hops": hops, "stream_rel_err": max(errs)})
+    phase("tasnet-decode", f"StreamingSeparator over cuda_apply (conv_tasnet, 0.5 s hops on 1.5 s "
+          f"of context): {launched[False]} mask_decode launches for {hops} hops, none under "
+          f"plain_versions(); worst hop rel L2 {max(errs):.3e} against the plain versions (<= "
+          f"{limit['hop_rel_err']})")
+    del model, weights
     torch.cuda.empty_cache()
     return out
 

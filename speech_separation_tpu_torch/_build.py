@@ -77,6 +77,9 @@ _SIGNATURES = {
     "sst_residual_layer_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # q, k, p, items, length, depth, scale, stream
     "sst_wide_attention_scores": (_P, _P, _P, _I, _I, _I, _F, _P),
+    # logits, mask_b, feats, dec_k, dec_b, out, batch, frames, speakers,
+    # channels, win, stride, left, samples, stream
+    "sst_mask_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

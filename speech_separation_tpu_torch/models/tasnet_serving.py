@@ -14,13 +14,16 @@ gLN is an affine map with per-item scalars, ``n(x) = A · x + B`` with
 :func:`fused_apply` computes the same function as ``ConvTasNet.forward`` over
 the same parameters, in plain PyTorch, in fp32 or bf16. :func:`cuda_apply` is
 the serving path with the whole TCN trunk in the ``tcn_trunk`` CUDA kernel
-(``ops/tcn_cuda.py``), bf16 only; the encoder, input projection, mask head and
-decoder stay PyTorch (cuDNN and cuBLAS), as the JAX package leaves them to XLA
-around its Pallas trunk. Both take the fp32 module and read its parameters;
-both serve the gLN topology only. ``cuda_apply`` keeps what it derives from
-the parameters alone (the trunk's stacks, the bf16 weights around it) in a
-cache keyed by the module, rebuilt when a parameter changes
-(:func:`_serving`); ``fused_apply`` derives them every call.
+(``ops/tcn_cuda.py``), bf16 only; the encoder, input projection and the mask
+projection's product stay PyTorch (cuDNN and cuBLAS), as the JAX package leaves
+them to XLA around its Pallas trunk, and the rest of the mask head with the
+decoder is one launch of the ``mask_decode`` kernel (``ops/mask_decode_cuda.py``,
+:func:`_mask_and_decode_cuda`), which rounds only the masked features to bf16.
+Both take the fp32 module and read its parameters; both serve the gLN topology
+only. ``cuda_apply`` keeps what it derives from the parameters alone (the
+trunk's stacks, the bf16 weights around it) in a cache keyed by the module,
+rebuilt when a parameter changes (:func:`_serving`); ``fused_apply`` derives
+them every call.
 
 :func:`train_apply` is the differentiable counterpart of ``cuda_apply`` that
 ``make_time_domain_steps(pallas_trunk=True)`` trains through (the JAX kernel
@@ -36,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.mask_decode_cuda import mask_decode
 from ..ops.tcn_cuda import stack_canonical, stack_tcn_weights, tcn_trunk_cuda
 from ..ops.tcn_train_cuda import tcn_trunk_train
 from ..utils.profiling import span
@@ -124,6 +128,14 @@ def _mask_and_decode(p, head: _Head, feats, skip_sum, num_speakers, enc_dim, win
     return wav.reshape(b, num_speakers, -1).float()[:, :, :samples]
 
 
+def _mask_and_decode_cuda(p, head: _Head, feats, skip_sum, samples, dt):
+    """PReLU → mask projection's product → the ``mask_decode`` kernel: the
+    mask's bias and sigmoid, × feats, the transposed decoder and its bias in
+    one launch, fp32 ``[B, S, samples]`` (its plain version on a CPU tensor)."""
+    mpre = _prelu(skip_sum.to(dt), p["mask_prelu.alpha"])
+    return mask_decode(mpre @ head.mask_k, head.mask_b, feats, head.dec_k, head.dec_b, samples)
+
+
 def _check_mix(model: ConvTasNet, mix: torch.Tensor) -> None:
     if model.causal:
         raise ValueError(
@@ -185,18 +197,17 @@ def fused_apply(model: ConvTasNet, mix: torch.Tensor, *, dtype: torch.dtype | No
 def cuda_apply(model: ConvTasNet, mix: torch.Tensor) -> torch.Tensor:
     """``ConvTasNet`` forward with the TCN trunk in the ``tcn_trunk`` kernel
     (bf16, the kernel's precision contract): ``mix [B, samples]`` (a multiple
-    of ``win // 2``) → fp32 ``[B, S, samples]``; inside
-    ``ops.plain_versions()`` the trunk's plain version, the reference a GPU
-    run is compared with. The weights come from :func:`_serving`'s cache.
-    Raises on a causal model."""
+    of ``win // 2``) → fp32 ``[B, S, samples]``, the mask head's tail and
+    the decoder in the ``mask_decode`` kernel; inside ``ops.plain_versions()``
+    both kernels' plain versions, the reference a GPU run is compared with.
+    The weights come from :func:`_serving`'s cache. Raises on a causal model."""
     _check_mix(model, mix)
     dt = torch.bfloat16
     with span("tasnet.weights"):
         w = _serving(model)
     feats, h = _encode_and_project(w.p, w.head, mix, model.win, dt)
     skip_sum = tcn_trunk_cuda(h, *w.stacks, dils=w.dils, taps=model.kernel)
-    return _mask_and_decode(w.p, w.head, feats, skip_sum, model.num_speakers, model.enc_dim,
-                            model.win, mix.shape[1], dt)
+    return _mask_and_decode_cuda(w.p, w.head, feats, skip_sum, mix.shape[1], dt)
 
 
 class _Serving(NamedTuple):

@@ -1636,3 +1636,102 @@ def test_tfgridnet_serving_matches_the_reference(cuda_device):
         serving_fn(model)(mix)
     with plain_versions():  # the plain attention serves fp32 on the card
         assert _rel(serving_fn(model)(mix), want) <= 1e-4
+
+
+# The mask-and-decode kernel against its plain version on the same bf16
+# operands: both add the mask's bias, take the sigmoid and the product in fp32
+# and round v once to bf16, then sum exact products in fp32, in other orders
+# (~1e-6 relative). A sigmoid an fp32 ulp apart can flip one v's rounding: 2^-8
+# of one of a sample's 2·N terms. So 1e-4 relative L2, and each sample within a
+# bf16 ulp of the largest.
+MASK_DECODE_REL = 1e-4
+
+
+def _mask_decode_operands(batch, frames, channels, win, device):
+    bf16 = torch.bfloat16
+    feats = torch.relu(_normal((batch, channels, frames), seed=242)).to(device, bf16)
+    return ((_normal((batch, frames, 2 * channels), seed=240)).to(device, bf16),
+            (0.1 * _normal((2 * channels,), seed=241)).to(device, bf16),
+            feats.transpose(1, 2),  # the encoder's layout: a view of [B, N, K]
+            (_normal((win, channels, 1), seed=243) / np.sqrt(channels)).to(device, bf16),
+            (0.1 * _normal((1,), seed=244)).to(device, bf16))
+
+
+@pytest.mark.parametrize("batch,frames,channels,win,short", [
+    (1, 800, 256, 40, 0), (16, 3_200, 256, 40, 0), (3, 131, 64, 16, 5), (2, 77, 512, 64, 31),
+    (1, 90, 24, 20, 0)], ids=["cell_hop", "bulk_16x8s", "odd_frames", "widest", "n24"])
+def test_mask_decode_kernel_matches_plain(cuda_device, batch, frames, channels, win, short):
+    """At the ``tasnet_stream`` cell's window (1 × 800 frames × 512 logits), a
+    bulk 16 × 8 s batch, a ragged K with a trimmed tail, the widest N and win
+    (past 48 KB of shared memory), and an N that leaves half a 16-channel step
+    of zeros."""
+    from speech_separation_tpu_torch.ops.mask_decode_cuda import mask_decode, mask_decode_plain
+
+    ops = _mask_decode_operands(batch, frames, channels, win, cuda_device)
+    samples = frames * (win // 2) - short
+    want = mask_decode_plain(*ops, samples)
+    with torch.inference_mode():
+        before = mask_decode.launches
+        got = mask_decode(*ops, samples)
+        again = mask_decode(*ops, samples)
+        assert mask_decode.launches == before + 2
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (batch, 2, samples)
+    assert torch.equal(again, got)  # reruns bit-identical
+    assert _rel(got, want) <= MASK_DECODE_REL
+    assert (got - want).abs().max().item() <= 2.0**-8 * want.abs().max().item()
+
+
+def test_mask_decode_kernel_refusals(cuda_device):
+    from speech_separation_tpu_torch.ops.mask_decode_cuda import mask_decode
+
+    logits, mask_b, feats, dec_k, dec_b = _mask_decode_operands(1, 64, 64, 40, cuda_device)
+    before = mask_decode.launches
+    flat = torch.zeros(1 + logits.numel(), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mask_decode(flat[1:].view(logits.shape), mask_b, feats, dec_k, dec_b, 64 * 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        mask_decode(logits, mask_b, feats.contiguous(), dec_k, dec_b, 64 * 20)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        mask_decode(logits, mask_b, feats, dec_k.cpu(), dec_b, 64 * 20)
+    with pytest.raises(RuntimeError, match="forward only"):
+        mask_decode(logits.requires_grad_(), mask_b, feats, dec_k, dec_b, 64 * 20)
+    with pytest.raises(TypeError, match="bf16"):
+        mask_decode(logits.detach().float(), mask_b, feats, dec_k, dec_b, 64 * 20)
+    assert mask_decode.launches == before
+
+
+def test_window_stream_decodes_in_the_kernel_once_a_hop(cuda_device):
+    """The window engine over ``cuda_apply`` at the ``tasnet_stream`` cell's
+    widths, hop and context: one ``mask_decode`` launch a hop and no cuDNN
+    ``dgrad`` kernel (the transposed conv it replaces); each hop's estimate
+    within the cell's ``hop_rel_err`` limit of the one ``plain_versions()``
+    gives."""
+    import json
+
+    from bench_torch.programs import conv_tasnet as program
+    from bench_torch.reference import conv_tasnet as reference
+    from speech_separation_tpu_torch.ops.mask_decode_cuda import mask_decode
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "bench_torch"
+    cfg = json.loads((root / "configs" / "conv_tasnet.json").read_text())
+    limit = json.loads((root / "limits" / "tasnet_stream.json").read_text())["hop_rel_err"]
+    model = program.build(cfg, reference.make_weights(cfg, 2**31 + 45, cuda_device), cuda_device)
+    hop, hops = 4_000, 5
+    mix = (_normal((hops * hop,), seed=245) * 0.3).numpy()
+    streams = {}
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for plain in (False, True):
+        sep = StreamingSeparator(lambda m: cuda_apply(model, m.to(cuda_device)), hop_seconds=0.5,
+                                 context_seconds=1.5)
+        before = mask_decode.launches
+        with plain_versions(plain), torch.profiler.profile(activities=activities) as prof:
+            streams[plain] = [sep.push(mix[i * hop:(i + 1) * hop]) for i in range(hops)]
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert not [k for k in kernels if "dgrad" in k], kernels
+        fused = [k for k in kernels if "mask_decode" in k]
+        assert mask_decode.launches - before == len(fused) == (0 if plain else hops)
+    for got, want in zip(streams[False], streams[True]):
+        assert got.shape == want.shape == (2, hop)
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) <= limit

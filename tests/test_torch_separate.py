@@ -219,8 +219,9 @@ def test_port_imports_without_jax():
 def test_build_command_targets_sm90a_with_every_source(tmp_path):
     names = sorted(s.name for s in _build.SOURCES)
     assert names == [
-        "lstm_recurrence.cu", "lstm_train_backward.cu", "nearest_code.cu", "residual_layer_norm.cu",
-        "stft_analysis.cu", "tcn_train_backward.cu", "tcn_trunk.cu", "wide_attention.cu",
+        "lstm_recurrence.cu", "lstm_train_backward.cu", "mask_decode.cu", "nearest_code.cu",
+        "residual_layer_norm.cu", "stft_analysis.cu", "tcn_train_backward.cu", "tcn_trunk.cu",
+        "wide_attention.cu",
     ]
     assert [s.name for s in _build.HEADERS] == ["tcn_common.cuh"]
     *compiles, link = _build.nvcc_commands("nvcc", tmp_path / "lib.so")
