@@ -94,10 +94,10 @@ class _DualPathBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, K, N]
         b, s, k, n = x.shape
-        with span(self.spans[0]):
+        with span(self.spans[0], device=True):
             y = self.half("intra", x.reshape(b * s, k, n))
             x = x + self.intra_norm(y.view(b, s * k, n)).view(b, s, k, n)
-        with span(self.spans[1]):
+        with span(self.spans[1], device=True):
             y = self.half("inter", x.transpose(1, 2).reshape(b * k, s, n))
             y = self.inter_norm(y.view(b, k * s, n)).view(b, k, s, n)
             x = x + y.transpose(1, 2)
@@ -158,16 +158,16 @@ class DPRNN(nn.Module):
         b, samples = mix.shape
         if samples % self.stride:
             raise ValueError(f"pad waveforms to a multiple of win//2 = {self.stride}, got {samples}")
-        # encode pads (win - stride) // 2 a side; "SAME" puts an odd one on the right
-        extra = (self.win - self.stride) % 2
-        feats = encode(F.pad(mix, (0, extra)), self.encoder.kernel, self.encoder.bias, self.win)
-        frames = feats.shape[1]
-        h = self.input_proj.pointwise(self.input_norm(feats))
-        with span("dprnn.segment"):
+        with span("dprnn.encode", device=True):
+            # encode pads (win - stride) // 2 a side; "SAME" puts an odd one on the right
+            extra = (self.win - self.stride) % 2
+            feats = encode(F.pad(mix, (0, extra)), self.encoder.kernel, self.encoder.bias, self.win)
+            frames = feats.shape[1]
+            h = self.input_proj.pointwise(self.input_norm(feats))
             h = segment(h, self.hop)
         for i in range(self.blocks):
             h = getattr(self, f"dp_{i}")(h)
-        with span("dprnn.merge"):
+        with span("dprnn.decode", device=True):
             masks = torch.sigmoid(overlap_add(self.mask_proj.pointwise(self.mask_prelu(h)), frames))
             masked = masks.view(b, frames, self.num_speakers, self.enc_dim) * feats[:, :, None, :]
             masked = masked.transpose(1, 2).reshape(b * self.num_speakers, frames, self.enc_dim)

@@ -208,15 +208,15 @@ class SepFormer(nn.Module):
         b, samples = mix.shape
         if samples % self.stride:
             raise ValueError(f"pad waveforms to a multiple of win//2 = {self.stride}, got {samples}")
-        extra = (self.win - self.stride) % 2  # "SAME" puts an odd pad on the right
-        feats = encode(F.pad(mix, (0, extra)), self.encoder.kernel, None, self.win).float()
-        frames = feats.shape[1]
-        h = _product(self.input_proj, self.input_norm(feats))
-        with span("sepformer.segment"):
+        with span("sepformer.encode", device=True):
+            extra = (self.win - self.stride) % 2  # "SAME" puts an odd pad on the right
+            feats = encode(F.pad(mix, (0, extra)), self.encoder.kernel, None, self.win).float()
+            frames = feats.shape[1]
+            h = _product(self.input_proj, self.input_norm(feats))
             h = segment(h.float(), self.hop)
         for i in range(self.blocks):
             h = getattr(self, f"dp_{i}")(h)
-        with span("sepformer.merge"):
+        with span("sepformer.decode", device=True):
             y = overlap_add(_product(self.mask_proj, self.mask_prelu(h)).float(), frames)
             y = y.view(b, frames, self.num_speakers, self.d_model)
             gated = torch.tanh(_product(self.gate_tanh, y)) * torch.sigmoid(_product(self.gate_sigmoid, y))

@@ -235,7 +235,7 @@ class TFGridNet(nn.Module):
         if samples < 2:
             raise ValueError(f"TFGridNet: a mixture of {samples} samples has no deviation")
         blocks = [getattr(self, f"block_{i}") for i in range(self.blocks)]
-        with span("tfgridnet.encode"):
+        with span("tfgridnet.encode", device=True):
             mix = mix.float()
             std = mix.std(dim=1, keepdim=True)
             spec = stft_cuda(mix / std, self.n_fft, self.hop, window="sqrt_hann")
@@ -249,17 +249,17 @@ class TFGridNet(nn.Module):
         if blocks:
             x, h = self._add_norm(x, None, blocks[0].intra_norm, blocks[0].intra_rnn)
         for i, block in enumerate(blocks):
-            with span("tfgridnet.intra"):
+            with span("tfgridnet.intra", device=True):
                 x, h = self._add_norm(x, block.intra(h), block.inter_norm, block.inter_rnn)
-            with span("tfgridnet.inter"):
+            with span("tfgridnet.inter", device=True):
                 x = x + block.inter(h)
-            with span("tfgridnet.attention"):
+            with span("tfgridnet.attention", device=True):
                 if i + 1 < len(blocks):  # the residual and the next block's first norm
                     after = blocks[i + 1]
                     x, h = self._add_norm(x, block.attention(x), after.intra_norm, after.intra_rnn)
                 else:
                     x = x + block.attention(x)
-        with span("tfgridnet.decode"):
+        with span("tfgridnet.decode", device=True):
             y = self.deconv.conv_transpose(x)  # [B, 2·speakers, T, F]
             y = y.reshape(b * self.num_speakers, 2, t, self.freqs)
             wav = istft(torch.complex(y[:, 0], y[:, 1]), self.n_fft, self.hop, window="sqrt_hann")

@@ -73,7 +73,8 @@ class StreamingSeparator:
         self._buffer = np.concatenate([self._buffer[self.hop :], hop])
         with span("stream.apply"):  # every launch of the hop, no wait
             out = self.apply_fn(torch.from_numpy(self._buffer[None]))
-        with span("stream.fetch"):  # the host blocked on the hop's device work and its copy
+        # the host blocked on the hop's device work and its copy; on the device, the copy
+        with span("stream.fetch", device=True):
             est = out.detach().float().cpu().numpy()[0]
 
         # permutation alignment over the causal context region

@@ -105,7 +105,7 @@ def _steps(loss_fn, arrays: Callable = lambda *args: args) -> tuple[Callable, Ca
         state.optimizer.zero_grad(set_to_none=True)
         with span("train.forward"):
             loss = loss_fn(*arrays(*args), state.generator)
-        with span("train.backward"):
+        with span("train.backward", device=True):
             loss.backward()
         return state.apply_gradients(), loss.detach()
 
@@ -229,7 +229,7 @@ def make_vae_steps(
         extra = schedule(state.step) if schedule is not None else None
         with span("train.forward"):
             loss, recon, _ = _loss(inputs, targets, state.generator, False, extra)
-        with span("train.backward"):
+        with span("train.backward", device=True):
             loss.backward()
         return state.apply_gradients(), loss.detach(), recon.detach()
 

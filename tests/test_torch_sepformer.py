@@ -322,7 +322,7 @@ def test_spans_once_a_block_a_forward():
     intra, inter = _spans(prof, "sst.sepformer.intra"), _spans(prof, "sst.sepformer.inter")
     assert len(intra) == len(inter) == 2 * 2
     assert all(a[1] <= b[0] for a, b in zip(intra, inter))  # intra, then inter, a block
-    assert len(_spans(prof, "sst.sepformer.segment")) == len(_spans(prof, "sst.sepformer.merge")) == 2
+    assert len(_spans(prof, "sst.sepformer.encode")) == len(_spans(prof, "sst.sepformer.decode")) == 2
     with torch.no_grad():
         assert all(torch.equal(t, model(mix)) for t in traced)
 
