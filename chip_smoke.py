@@ -157,7 +157,8 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
 22. window streaming — the full-width gLN Conv-TasNet (win 16) over a 20 s
    mix (``default_rng(0)`` × 0.1) at ``scripts/streaming_latency_bench.py``'s
    (hop, context) of (0.25, 1.75), (0.5, 1.5) and (1.0, 3.0) s, through
-   ``cuda_apply`` (one trunk kernel launch a hop, counted), ``cuda_apply``
+   ``cuda_apply`` (one trunk kernel a hop, counted on the device: the
+   engine's hops from the third replay a CUDA graph), ``cuda_apply``
    with the plain trunk and the bf16 module: median and p90 ms a hop after 2
    warm-up hops and the real-time factor; the kernel stream against the
    plain-trunk stream with each hop's speaker order aligned, and the hops
@@ -165,7 +166,7 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    window beside the host's weight restacking that its cache saves; the trunk
    kernel alone at B=1 × K=2000 and 4000 against its plain version and bound;
    ``cli separate --kernel pallas --streaming-hop-seconds 0.5`` on phase 10's
-   checkpoint and ``tt`` split (one launch a hop);
+   checkpoint and ``tt`` split (one trunk kernel a hop on the device);
 23. stateful streaming — the full-width causal Conv-TasNet in fp32 over a 4 s
    mix at hops of 16, 80, 400 and 4000 samples: the emissions against
    ``model(mix)`` offline within 1e-4 × max(1, max |offline|), median and p90
@@ -228,8 +229,9 @@ Phases, one line each (any failed check raises and the exit code is non-zero):
    kernel made beforehand) and the whole chain it replaces (``chain_ms``:
    bias, sigmoid, product, copy, ``decode``, ``.float()``); then
    ``StreamingSeparator`` over ``cuda_apply`` at the cell's widths, hop and
-   context, one launch a hop, none under ``plain_versions()``, each hop
-   within the cell's ``hop_rel_err`` limit of the plain versions'.
+   context, one ``mask_decode`` kernel a hop on the device, none under
+   ``plain_versions()``, each hop within the cell's ``hop_rel_err`` limit of
+   the plain versions'.
 
 Phase 15 also holds the search's NaN picks: a NaN score orders below every
 number, so a row holding one gets its first NaN's index, as ``torch.argmin``
@@ -248,7 +250,8 @@ used nowhere in the port.
 Phases run in the order 1 to 19, 21 to 27, then 20. The kernels line gives
 each kernel's launches on the dynamic-mixing path of phase 21
 (``launches_dynamic_mix``) and the trunk kernel's on the window streaming
-path of phase 22 (``launches_streaming``, ``launches_streaming_cli``) with its
+path of phase 22 (``launches_streaming``, ``launches_streaming_cli``: kernels
+the profiler saw on the device, replays included) with its
 times at B = 1; the LSTM recurrence's entry carries phase 24's (``dprnn``).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
@@ -2572,6 +2575,19 @@ def dynamic_mix_phases(device, kept) -> dict:
             "fixed_batch_ms": 1e3 * min(host_s["fixed"]), "tasnet_step_ms": step_ms}
 
 
+def kernels_on_device(fn, name: str) -> int:
+    """Launches on the device whose kernel names hold ``name`` while ``fn()``
+    runs, by the profiler's trace: a CUDA graph's replay runs its kernels
+    without calling their wrappers, whose counters miss them."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(name in e.name for e in prof.events() if e.device_type.name == "CUDA")
+
+
 def device_busy(fn, calls: int) -> tuple[float, dict]:
     """``fn()`` ``calls`` times under the profiler: (device operations a call,
     {"busy_ms": the device's busy ms a call, "idle": its idle share of the
@@ -2674,9 +2690,9 @@ def window_streaming_phases(device, gen, kept) -> dict:
     for hop_s, ctx_s in STREAM_PAIRS:
         hops = {}
         for what, fn in paths.items():
-            before = tcn_trunk_cuda.launches
             outs, perms, ms = stream_hops(fn, mix, hop_s, ctx_s)
-            launched = tcn_trunk_cuda.launches - before
+            # the same stream again under the profiler: the trunk kernels the device ran
+            launched = kernels_on_device(lambda: stream_hops(fn, mix, hop_s, ctx_s), "trunk_kernel")
             want = len(outs) if what == "cuda_apply" else 0
             if launched != want or not all(np.isfinite(o).all() for o in outs):
                 raise AssertionError(f"window stream {what} hop {hop_s} s: {launched} trunk "
@@ -2753,10 +2769,11 @@ def window_streaming_phases(device, gen, kept) -> dict:
         train_mod.CheckpointManager(tmp / "ckpt").save_if_best(0, state, 0.0)
         save_config(UPitTrainConfig(variant="tasnet", seed=0, batch_size=4), tmp / "ckpt" / "train_config.json")
         out = tmp / "sep"
-        tcn_trunk_cuda.launches = 0
-        line = cli_json(["separate", "--checkpoint-dir", str(tmp / "ckpt"), "--data-root", str(root),
-                         "--out-dir", str(out), "--kernel", "pallas", "--streaming-hop-seconds", "0.5"])
-        cli_launches = tcn_trunk_cuda.launches
+        argv = ["separate", "--checkpoint-dir", str(tmp / "ckpt"), "--data-root", str(root),
+                "--out-dir", str(out), "--kernel", "pallas", "--streaming-hop-seconds", "0.5"]
+        lines = []
+        cli_launches = kernels_on_device(lambda: lines.append(cli_json(argv)), "trunk_kernel")
+        line = lines[0]
         names = (root / "lists" / "tt_wav.lst").read_text().split()
         hops = 0
         for n in names:
@@ -3399,10 +3416,12 @@ def tasnet_decode_phases(device, gen) -> dict:
     for plain in (False, True):
         sep = StreamingSeparator(lambda m: cuda_apply(model, m.to(device)), hop_seconds=0.5,
                                  context_seconds=1.5)
-        before = mask_decode.launches
-        with plain_versions(plain):
-            streams[plain] = [sep.push(mix[i * hop:(i + 1) * hop]) for i in range(hops)]
-        launched[plain] = mask_decode.launches - before
+
+        def push_all(sep=sep, plain=plain):
+            with plain_versions(plain):
+                streams[plain] = [sep.push(mix[i * hop:(i + 1) * hop]) for i in range(hops)]
+
+        launched[plain] = kernels_on_device(push_all, "mask_decode")
     errs = [float(np.linalg.norm(g - w) / np.linalg.norm(w))
             for g, w in zip(streams[False], streams[True])]
     if launched != {False: hops, True: 0} or max(errs) > limit["hop_rel_err"]:

@@ -25,6 +25,19 @@ trunk's stacks, the bf16 weights around it) in a cache keyed by the module,
 rebuilt when a parameter changes (:func:`_serving`); ``fused_apply`` derives
 them every call.
 
+Where its caller declares ``ops.fixed_shape_calls()`` (a streaming engine
+around its window), ``cuda_apply`` serves its launches after the weights
+lookup (encoder, gLN, input projection, trunk, PReLU, mask product,
+``mask_decode``) through a CUDA graph held in the cache entry, keyed by the
+input's shape, dtype and device and the current stream (:func:`_graph_key`):
+a key's first call runs eager, a second call in a row with the same key
+captures the chain, later calls with that key copy the input into the
+graph's and replay it (:class:`_Graphs`, one graph an entry). Every other
+call runs eager, bulk batches among them: a batch's launches hide behind its
+device time, and a capture costs a synchronisation, a garbage collection and
+a private memory pool of the batch's intermediates. The graph dies with the
+entry, and so with the weights it baked in.
+
 :func:`train_apply` is the differentiable counterpart of ``cuda_apply`` that
 ``make_time_domain_steps(pallas_trunk=True)`` trains through (the JAX kernel
 branch's ``_forward``): the live fp32 parameters cast to bf16 inside, the
@@ -39,6 +52,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.dispatch import in_fixed_shape_calls, use_plain
 from ..ops.mask_decode_cuda import mask_decode
 from ..ops.tcn_cuda import stack_canonical, stack_tcn_weights, tcn_trunk_cuda
 from ..ops.tcn_train_cuda import tcn_trunk_train
@@ -200,14 +214,109 @@ def cuda_apply(model: ConvTasNet, mix: torch.Tensor) -> torch.Tensor:
     of ``win // 2``) → fp32 ``[B, S, samples]``, the mask head's tail and
     the decoder in the ``mask_decode`` kernel; inside ``ops.plain_versions()``
     both kernels' plain versions, the reference a GPU run is compared with.
-    The weights come from :func:`_serving`'s cache. Raises on a causal model."""
+    The weights come from :func:`_serving`'s cache. Raises on a causal model.
+
+    Inside ``ops.fixed_shape_calls()``, on a CUDA tensor outside
+    ``plain_versions()`` (and outside another graph's capture), the launches
+    after the lookup go through the entry's graph (:class:`_Graphs`): eager
+    at a key's first call, captured at its second in a row, replayed after,
+    with the same kernels on the same operands, so a replay's output equals
+    the eager call's bit for bit. A replay returns a copy of the graph's
+    output and runs inside a span ``sst.tasnet.graph.replay``; it calls
+    neither kernel's wrapper, so their ``launches`` counters see the eager
+    call and the capture only."""
     _check_mix(model, mix)
-    dt = torch.bfloat16
     with span("tasnet.weights"):
         w = _serving(model)
+    if (not in_fixed_shape_calls() or use_plain(mix)
+            or torch.cuda.is_current_stream_capturing()):
+        return _launch(model, w, mix)
+    stream = torch.cuda.current_stream(mix.device)
+    key = _graph_key(mix, stream)
+    graph = w.graphs.choose(key)
+    if graph is None:
+        return _launch(model, w, mix)
+    if graph is _CAPTURE:
+        out, graph = _capture(model, w, mix, stream)
+        w.graphs.add(key, graph)
+        return out
+    with span("tasnet.graph.replay"):
+        return graph(mix)
+
+
+def _launch(model: ConvTasNet, w: "_Serving", mix: torch.Tensor) -> torch.Tensor:
+    """Every launch of ``cuda_apply`` after the weights lookup."""
+    dt = torch.bfloat16
     feats, h = _encode_and_project(w.p, w.head, mix, model.win, dt)
     skip_sum = tcn_trunk_cuda(h, *w.stacks, dils=w.dils, taps=model.kernel)
     return _mask_and_decode_cuda(w.p, w.head, feats, skip_sum, mix.shape[1], dt)
+
+
+def _graph_key(mix: torch.Tensor, stream) -> tuple:
+    """What a graph of :func:`_launch` is valid for, besides the weights:
+    the input's shape, dtype and device, and the stream it replays on."""
+    return tuple(mix.shape), mix.dtype, mix.device, stream.cuda_stream
+
+
+_CAPTURE = object()  # _Graphs.choose's answer where the call should capture
+
+
+class _Graphs:
+    """Which way a weights entry serves a call, by the call's key: eager
+    (``None``) at a key's first call, :data:`_CAPTURE` when the entry's last
+    call had the same key, else the graph it holds for the key. It holds one
+    graph; a new capture replaces it. Plain Python: it only remembers keys
+    and what it is given."""
+
+    def __init__(self):
+        self.key = self.graph = None  # the held graph and its key
+        self.last = None  # the key of the entry's last call
+
+    def choose(self, key):
+        previous, self.last = self.last, key
+        if self.graph is not None and key == self.key:
+            return self.graph
+        return _CAPTURE if key == previous else None
+
+    def add(self, key, graph) -> None:
+        self.key, self.graph = key, graph
+
+
+class _Replay:
+    """A captured :func:`_launch`: its graph, the input it reads and the
+    output it writes. Built around a copy of the call's input, before the
+    capture that fills in the rest."""
+
+    __slots__ = ("graph", "mix", "out")
+
+    def __init__(self, mix: torch.Tensor):
+        # a normal tensor even where the capture runs in inference mode, so that
+        # a call outside that mode may copy into it
+        with torch.inference_mode(False):
+            self.mix = mix.clone()
+        self.graph = self.out = None
+
+    def __call__(self, mix: torch.Tensor) -> torch.Tensor:
+        self.mix.copy_(mix)
+        self.graph.replay()
+        return self.out.clone()  # the static output is overwritten by the next replay
+
+
+def _capture(model: ConvTasNet, w: "_Serving", mix: torch.Tensor, stream):
+    """``(out, replay)``: :func:`_launch` run eager on a side stream (the
+    warm-up that capture needs there, and this call's result), then captured
+    there into a graph that reads a copy of ``mix``."""
+    side = torch.cuda.Stream(mix.device)  # one of torch's pooled streams
+    replay = _Replay(mix)
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        out = _launch(model, w, replay.mix)
+    replay.graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(replay.graph, stream=side, capture_error_mode="thread_local"):
+        replay.out = _launch(model, w, replay.mix)
+    stream.wait_stream(side)
+    out.record_stream(stream)
+    return out, replay
 
 
 class _Serving(NamedTuple):
@@ -217,6 +326,7 @@ class _Serving(NamedTuple):
     stacks: tuple  # the trunk kernel's (we, wdw, wg, vecs)
     head: _Head  # bf16
     dils: tuple[int, ...]
+    graphs: _Graphs  # of _launch on these operands, under ops.fixed_shape_calls()
 
 
 # module -> (validity key, operands, the parameters as the key saw them); an
@@ -227,7 +337,7 @@ _SERVING: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 def _build_serving(model: ConvTasNet) -> _Serving:
     p = _params(model)
     stacks = stack_tcn_weights(p, blocks=model.blocks, repeats=model.repeats)
-    return _Serving(p, stacks, _head(p, torch.bfloat16), _dilations(model))
+    return _Serving(p, stacks, _head(p, torch.bfloat16), _dilations(model), _Graphs())
 
 
 def _leaves(module: torch.nn.Module, out: list) -> list:

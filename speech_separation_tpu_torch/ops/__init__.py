@@ -1,5 +1,5 @@
 """DSP ops and the CUDA kernels' wrappers."""
 
-from .dispatch import plain_versions, use_plain
+from .dispatch import fixed_shape_calls, plain_versions, use_plain
 
-__all__ = ["plain_versions", "use_plain"]
+__all__ = ["fixed_shape_calls", "plain_versions", "use_plain"]

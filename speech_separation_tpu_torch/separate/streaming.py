@@ -2,7 +2,8 @@
 ``separate/streaming.py``).
 
 Each ``push(hop)`` runs one fixed-shape model call on the trailing window of
-``context + hop`` samples, emits the newest ``hop`` samples and aligns the
+``context + hop`` samples (inside ``ops.fixed_shape_calls()``, so a serving
+path may replay its launches as one CUDA graph), emits the newest ``hop`` samples and aligns the
 speaker order with the samples already emitted by correlation over the
 context region: causal information only, as ``separate_chunked`` aligns its
 chunks.
@@ -22,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from ..ops.dispatch import fixed_shape_calls
 from ..utils.profiling import span
 
 __all__ = ["StreamingSeparator", "stream_separate"]
@@ -71,7 +73,8 @@ class StreamingSeparator:
         if hop.shape != (self.hop,):
             raise ValueError(f"push expects exactly {self.hop} samples")
         self._buffer = np.concatenate([self._buffer[self.hop :], hop])
-        with span("stream.apply"):  # every launch of the hop, no wait
+        # every launch of the hop, no wait; every call on the one window shape
+        with span("stream.apply"), fixed_shape_calls():
             out = self.apply_fn(torch.from_numpy(self._buffer[None]))
         # the host blocked on the hop's device work and its copy; on the device, the copy
         with span("stream.fetch", device=True):

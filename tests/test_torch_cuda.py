@@ -830,19 +830,22 @@ def test_tcn_trunk_kernel_at_the_window_engines_batch_1(cuda_device, frames):
 
 
 def test_window_stream_launches_the_trunk_once_a_hop(cuda_device):
-    """The window engine over ``cuda_apply``: one trunk kernel launch a hop,
-    and each hop within the kernel path's bound of the plain trunk's."""
+    """The window engine over ``cuda_apply``: one trunk kernel a hop on the
+    device (the first hop eager, the second captured, the rest replayed), and
+    each hop within the kernel path's bound of the plain trunk's."""
     model = ConvTasNet(enc_dim=64, bottleneck=32, hidden=48, blocks=4, repeats=2,
                        generator=torch.Generator().manual_seed(0)).to(cuda_device)
     mix = (_normal((6000,), seed=41) * 0.3).numpy()
     streams = {}
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for plain in (False, True):
         sep = StreamingSeparator(lambda m: cuda_apply(model, m.to(cuda_device)),
                                  hop_seconds=0.125, context_seconds=0.375)
-        before = tcn_trunk_cuda.launches
-        with plain_versions(plain):
+        with plain_versions(plain), torch.profiler.profile(activities=activities) as prof:
             streams[plain] = [sep.push(mix[i : i + 1000]) for i in range(0, 6000, 1000)]
-        assert tcn_trunk_cuda.launches - before == (0 if plain else 6)
+            torch.cuda.synchronize()
+        assert _device_kernels(prof, "trunk_kernel") == (0 if plain else 6)
+        assert _replay_spans(prof) == (0 if plain else 4)
     for got, want in zip(streams[False], streams[True]):
         snr = 10 * np.log10(np.square(want).sum() / max(np.square(got - want).sum(), 1e-30))
         assert snr >= SERVE_KERNEL_DB
@@ -1711,7 +1714,6 @@ def test_window_stream_decodes_in_the_kernel_once_a_hop(cuda_device):
 
     from bench_torch.programs import conv_tasnet as program
     from bench_torch.reference import conv_tasnet as reference
-    from speech_separation_tpu_torch.ops.mask_decode_cuda import mask_decode
 
     root = pathlib.Path(__file__).resolve().parents[1] / "bench_torch"
     cfg = json.loads((root / "configs" / "conv_tasnet.json").read_text())
@@ -1724,14 +1726,177 @@ def test_window_stream_decodes_in_the_kernel_once_a_hop(cuda_device):
     for plain in (False, True):
         sep = StreamingSeparator(lambda m: cuda_apply(model, m.to(cuda_device)), hop_seconds=0.5,
                                  context_seconds=1.5)
-        before = mask_decode.launches
         with plain_versions(plain), torch.profiler.profile(activities=activities) as prof:
             streams[plain] = [sep.push(mix[i * hop:(i + 1) * hop]) for i in range(hops)]
+            torch.cuda.synchronize()
         kernels = [e.name for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         assert not [k for k in kernels if "dgrad" in k], kernels
         fused = [k for k in kernels if "mask_decode" in k]
-        assert mask_decode.launches - before == len(fused) == (0 if plain else hops)
+        assert len(fused) == (0 if plain else hops), kernels
+        assert _replay_spans(prof) == (0 if plain else hops - 2)
     for got, want in zip(streams[False], streams[True]):
         assert got.shape == want.shape == (2, hop)
         assert np.linalg.norm(got - want) / np.linalg.norm(want) <= limit
+
+
+# cuda_apply's CUDA graph (models/tasnet_serving.py): at the tasnet_stream
+# cell's widths and window ([1, 16,000] samples: 1.5 s of context and a 0.5 s
+# hop at 8 kHz), inside ops.fixed_shape_calls() a key's second call in a row
+# captures and later calls replay the same kernels on the same operands, so
+# each result equals the eager chain (tasnet_serving._launch) bit for bit.
+GRAPH_WINDOW = 16_000
+REPLAY_SPAN = "sst.tasnet.graph.replay"
+WITH_DEVICE = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+
+def _stream_cell_model(device, seed=2**31 + 251):
+    import json
+
+    from bench_torch.programs import conv_tasnet as program
+    from bench_torch.reference import conv_tasnet as reference
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "bench_torch"
+    cfg = json.loads((root / "configs" / "conv_tasnet.json").read_text())
+    return program.build(cfg, reference.make_weights(cfg, seed, device), device), cfg
+
+
+def _launch_counts():
+    from speech_separation_tpu_torch.ops.mask_decode_cuda import mask_decode
+
+    return tcn_trunk_cuda.launches, mask_decode.launches
+
+
+def _replay_spans(prof) -> int:
+    return sum(e.name == REPLAY_SPAN for e in prof.events())
+
+
+def _device_kernels(prof, name: str) -> int:
+    return sum(name in e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def test_cuda_apply_replays_equal_eager_calls_window_for_window(cuda_device):
+    """Ten windows in a row: eager, captured, then eight replays, each equal
+    to the eager chain on its window, each returned tensor unchanged by the
+    calls after it, each replay one run of the trunk and of ``mask_decode``
+    on the device and no call of their wrappers, one graph held."""
+    from speech_separation_tpu_torch.models import tasnet_serving as serving
+    from speech_separation_tpu_torch.ops import fixed_shape_calls
+
+    model, _ = _stream_cell_model(cuda_device)
+    windows = (_normal((10, GRAPH_WINDOW), seed=250) * 0.3).to(cuda_device)
+    outs, kept = [], []
+    for i in range(10):
+        before = _launch_counts()
+        with fixed_shape_calls(), torch.profiler.profile(activities=WITH_DEVICE) as prof:
+            got = cuda_apply(model, windows[i:i + 1])
+            torch.cuda.synchronize()
+        # the eager call, the capture's warm-up and the capture call the wrappers
+        calls = {0: 1, 1: 2}.get(i, 0)
+        assert _launch_counts() == (before[0] + calls, before[1] + calls)
+        assert _replay_spans(prof) == (i >= 2)
+        assert _device_kernels(prof, "trunk_kernel") == 1
+        assert _device_kernels(prof, "mask_decode") == 1
+        outs.append(got)
+        kept.append(got.clone())
+    w = serving._serving(model)
+    assert w.graphs.graph is not None
+    for i, (got, first) in enumerate(zip(outs, kept)):
+        assert torch.equal(got, first)  # not overwritten by a later replay
+        assert torch.equal(got, serving._launch(model, w, windows[i:i + 1]))
+
+
+def test_cuda_apply_recaptures_after_an_in_place_update(cuda_device):
+    """An optimizer's ``add_`` under ``no_grad``: a new entry, eager, then a
+    new capture, equal to a model never served with the new weights."""
+    from bench_torch.programs import conv_tasnet as program
+    from speech_separation_tpu_torch.models import tasnet_serving as serving
+    from speech_separation_tpu_torch.ops import fixed_shape_calls
+
+    model, cfg = _stream_cell_model(cuda_device)
+    window = (_normal((1, GRAPH_WINDOW), seed=252) * 0.3).to(cuda_device)
+    with fixed_shape_calls():
+        for _ in range(3):
+            cuda_apply(model, window)
+        old = serving._SERVING[model][1]
+        assert old.graphs.graph is not None
+        with torch.no_grad():
+            model.decoder.bias.add_(0.05)
+        outs = [cuda_apply(model, window) for _ in range(4)]
+    new = serving._SERVING[model][1]
+    assert new is not old and new.graphs.graph is not None
+    fresh = program.build(cfg, model.state_dict(), cuda_device)
+    want = serving._launch(fresh, serving._serving(fresh), window)
+    for got in outs:
+        assert torch.equal(got, want)
+    assert not torch.equal(outs[0], serving._launch(model, old, window))
+
+
+def test_cuda_apply_runs_a_new_shape_eager_and_plain_versions_never_replay(cuda_device):
+    from speech_separation_tpu_torch.models import tasnet_serving as serving
+    from speech_separation_tpu_torch.ops import fixed_shape_calls
+
+    model, _ = _stream_cell_model(cuda_device)
+    window = (_normal((1, GRAPH_WINDOW), seed=253) * 0.3).to(cuda_device)
+    short = window[:, :8_000].clone()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    with fixed_shape_calls():
+        for _ in range(3):
+            cuda_apply(model, window)
+        w = serving._serving(model)
+        held = w.graphs.graph
+        with torch.profiler.profile(activities=activities) as prof:
+            got = cuda_apply(model, short)  # a new shape: eager, no capture
+        assert _replay_spans(prof) == 0 and w.graphs.graph is held
+        assert torch.equal(got, serving._launch(model, w, short))
+        before = _launch_counts()
+        with torch.profiler.profile(activities=activities) as prof, plain_versions():
+            plain = [cuda_apply(model, window) for _ in range(3)]
+        assert _replay_spans(prof) == 0 and _launch_counts() == before
+        assert w.graphs.graph is held
+        with plain_versions():
+            assert torch.equal(plain[0], serving._launch(model, w, window))
+        with torch.profiler.profile(activities=activities) as prof:
+            again = cuda_apply(model, window)  # the window's graph is still held
+    assert _replay_spans(prof) == 1
+    assert torch.equal(again, serving._launch(model, w, window))
+
+
+def test_cuda_apply_outside_fixed_shape_calls_never_captures(cuda_device):
+    """Bulk calls of one shape back to back stay eager: every call runs the
+    wrappers, no replay, no key remembered."""
+    from speech_separation_tpu_torch.models import tasnet_serving as serving
+
+    model, _ = _stream_cell_model(cuda_device)
+    batch = (_normal((4, GRAPH_WINDOW), seed=255) * 0.3).to(cuda_device)
+    before = _launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        outs = [cuda_apply(model, batch) for _ in range(4)]
+    assert _replay_spans(prof) == 0 and _launch_counts() == (before[0] + 4, before[1] + 4)
+    w = serving._serving(model)
+    assert w.graphs.last is None and w.graphs.graph is None
+    for got in outs:
+        assert torch.equal(got, outs[0])
+
+
+@pytest.mark.parametrize("captured_in_inference_mode", [True, False])
+def test_cuda_apply_replays_across_inference_mode(cuda_device, captured_in_inference_mode):
+    """A window captured under ``torch.inference_mode()`` (a stream's calls)
+    replays for a plain call on the same shape, and the other way round."""
+    from speech_separation_tpu_torch.models import tasnet_serving as serving
+    from speech_separation_tpu_torch.ops import fixed_shape_calls
+
+    model, _ = _stream_cell_model(cuda_device)
+    windows = (_normal((4, GRAPH_WINDOW), seed=254) * 0.3).to(cuda_device)
+    with torch.inference_mode(captured_in_inference_mode), fixed_shape_calls():
+        for i in range(2):
+            cuda_apply(model, windows[i:i + 1])
+    w = serving._serving(model)
+    assert w.graphs.graph is not None
+    for i in (2, 3):
+        with torch.inference_mode(i == 2 and not captured_in_inference_mode), fixed_shape_calls(), \
+                torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            got = cuda_apply(model, windows[i:i + 1])
+        assert _replay_spans(prof) == 1
+        assert torch.equal(got, serving._launch(model, w, windows[i:i + 1]))

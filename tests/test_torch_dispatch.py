@@ -1,7 +1,8 @@
 """PyTorch port, the kernel-or-plain choice on the CPU: which recurrence
 ``models/blstm.py::BiLSTM`` reaches with gradients on or off and with or
-without packed rows, and the scoped ``ops.plain_versions()`` switch that
-every CUDA wrapper reads through ``ops.dispatch.use_plain``."""
+without packed rows, the scoped ``ops.plain_versions()`` switch that
+every CUDA wrapper reads through ``ops.dispatch.use_plain``, and the scoped
+``ops.fixed_shape_calls()`` hint a streaming engine gives the serving paths."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch
 from speech_separation_tpu_torch import ops
 from speech_separation_tpu_torch.models import blstm
 from speech_separation_tpu_torch.models.blstm import BiLSTM
-from speech_separation_tpu_torch.ops import plain_versions, use_plain
+from speech_separation_tpu_torch.ops import fixed_shape_calls, plain_versions, use_plain
+from speech_separation_tpu_torch.ops.dispatch import in_fixed_shape_calls
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["rows", "packed"])
@@ -69,3 +71,20 @@ def test_the_switch_stays_in_its_own_thread():
         worker.join()
         seen.append(use_plain(meta))
     assert seen == [False, True]
+
+
+def test_the_fixed_shape_hint_is_off_by_default_nests_and_restores():
+    assert ops.fixed_shape_calls is fixed_shape_calls and not in_fixed_shape_calls()
+    with pytest.raises(RuntimeError, match="inside"):
+        with fixed_shape_calls():
+            with fixed_shape_calls():
+                assert in_fixed_shape_calls()
+            assert in_fixed_shape_calls()
+            raise RuntimeError("inside")
+    assert not in_fixed_shape_calls()
+    seen = []
+    with fixed_shape_calls():
+        thread = threading.Thread(target=lambda: seen.append(in_fixed_shape_calls()))
+        thread.start()
+        thread.join()
+    assert seen == [False]  # another thread's calls are not declared
